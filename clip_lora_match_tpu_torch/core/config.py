@@ -1,0 +1,180 @@
+"""Typed configuration tree, YAML-loadable with the JAX package's keys.
+
+The port's own copy of the parts of ``clip_lora_match_tpu/core/config.py`` the
+serving path needs: ``ClipArchConfig`` (with the same presets), ``ClipConfig``,
+``PreprocessConfig``, ``LoraConfig`` and ``load_clip_config``, parsing the same
+``config/clip_config.yaml``. Unknown keys are ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import yaml
+
+# CLIP normalization constants (config/clip_config.yaml preprocess block).
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+@dataclass(frozen=True)
+class ClipArchConfig:
+    """Architecture hyper-parameters of the CLIP dual tower (ViT-B/32 default)."""
+
+    # Vision tower
+    image_size: int = 224
+    patch_size: int = 32
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12
+    vision_mlp_dim: int = 3072
+    # Text tower
+    vocab_size: int = 49408
+    max_text_length: int = 77
+    text_width: int = 512
+    text_layers: int = 12
+    text_heads: int = 8
+    text_mlp_dim: int = 2048
+    # Shared
+    projection_dim: int = 512
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    logit_scale_init: float = 2.6592  # ln(1/0.07)
+
+    @property
+    def vision_seq_len(self) -> int:
+        return (self.image_size // self.patch_size) ** 2 + 1  # +1 class token
+
+
+VIT_B32 = ClipArchConfig()
+VIT_B16 = ClipArchConfig(patch_size=16)
+VIT_L14 = ClipArchConfig(
+    patch_size=14,
+    vision_width=1024,
+    vision_layers=24,
+    vision_heads=16,
+    vision_mlp_dim=4096,
+    text_width=768,
+    text_heads=12,
+    text_mlp_dim=3072,
+    projection_dim=768,
+)
+VIT_L14_336 = dataclasses.replace(VIT_L14, image_size=336)
+
+ARCH_PRESETS = {
+    "openai/clip-vit-base-patch32": VIT_B32,
+    "openai/clip-vit-base-patch16": VIT_B16,
+    "openai/clip-vit-large-patch14": VIT_L14,
+    "openai/clip-vit-large-patch14-336": VIT_L14_336,
+}
+
+
+def arch_for_model_name(name: str) -> ClipArchConfig:
+    """Resolve a CLIP model name to its preset; unknown names warn and fall
+    back to ViT-B/32."""
+    if name in ARCH_PRESETS:
+        return ARCH_PRESETS[name]
+    warnings.warn(
+        f"unknown CLIP model name {name!r}; assuming ViT-B/32 geometry "
+        f"(known: {sorted(ARCH_PRESETS)})"
+    )
+    return VIT_B32
+
+
+@dataclass(frozen=True)
+class PreprocessConfig:
+    """Mirrors the ``preprocess:`` block of config/clip_config.yaml."""
+
+    image_size: int = 224
+    center_crop: bool = True
+    mean: Sequence[float] = CLIP_IMAGE_MEAN
+    std: Sequence[float] = CLIP_IMAGE_STD
+    max_text_length: int = 77
+    truncate: bool = True
+
+
+@dataclass(frozen=True)
+class ClipConfig:
+    """Mirrors the model and preprocess blocks of config/clip_config.yaml."""
+
+    model_name: str = "openai/clip-vit-base-patch32"
+    dtype: str = "float32"
+    compute_dtype: str = "bfloat16"  # matmul dtype on CUDA; fp32 accumulate
+    preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
+    arch: Optional[ClipArchConfig] = None
+    tokenizer_dir: Optional[str] = None
+    # dispatch the hand-written CUDA kernels inside the towers on CUDA
+    use_pallas_kernels: bool = True
+
+    def __post_init__(self):
+        if self.arch is None:
+            object.__setattr__(self, "arch", arch_for_model_name(self.model_name))
+        if self.preprocess.image_size != self.arch.image_size:
+            object.__setattr__(
+                self,
+                "preprocess",
+                dataclasses.replace(self.preprocess, image_size=self.arch.image_size),
+            )
+
+
+@dataclass(frozen=True)
+class LoraConfig:
+    """Mirrors config/lora_config.yaml lora/model blocks."""
+
+    r: int = 8
+    alpha: int = 16
+    target_modules: Sequence[str] = ("q_proj", "k_proj", "v_proj", "out_proj")
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.r
+
+
+def _read_yaml(path: str) -> dict:
+    with open(path, "r") as f:
+        data = yaml.safe_load(f)
+    return data or {}
+
+
+def load_clip_config(path: Optional[str] = None) -> ClipConfig:
+    """Parse the config/clip_config.yaml shape; a missing path gives defaults."""
+    if path is None or not os.path.exists(path):
+        return ClipConfig()
+    raw = _read_yaml(path)
+    model = raw.get("model", {}) or {}
+    pre = raw.get("preprocess", {}) or {}
+    norm = pre.get("normalize", {}) or {}
+    preprocess = PreprocessConfig(
+        image_size=pre.get("image_size", 224),
+        center_crop=pre.get("center_crop", True),
+        mean=tuple(norm.get("mean", CLIP_IMAGE_MEAN)),
+        std=tuple(norm.get("std", CLIP_IMAGE_STD)),
+        max_text_length=pre.get("max_text_length", 77),
+        truncate=pre.get("truncate", True),
+    )
+    return ClipConfig(
+        model_name=model.get("name", "openai/clip-vit-base-patch32"),
+        dtype=model.get("dtype", "float32"),
+        compute_dtype=model.get("compute_dtype", "bfloat16"),
+        preprocess=preprocess,
+        tokenizer_dir=model.get("tokenizer_dir"),
+        use_pallas_kernels=model.get("use_pallas_kernels", True),
+        arch=_arch_from_yaml(model),
+    )
+
+
+def _arch_from_yaml(model: dict) -> Optional[ClipArchConfig]:
+    """Optional ``model.arch:`` override block; None resolves from the name."""
+    block = model.get("arch")
+    if not block:
+        return None
+    base = arch_for_model_name(model.get("name", "openai/clip-vit-base-patch32"))
+    known = {f.name for f in dataclasses.fields(ClipArchConfig)}
+    unknown = sorted(set(block) - known)
+    if unknown:
+        warnings.warn(f"ignoring unknown model.arch keys: {unknown}")
+    return dataclasses.replace(base, **{k: v for k, v in block.items() if k in known})

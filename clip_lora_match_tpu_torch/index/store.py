@@ -1,0 +1,156 @@
+"""Embedding index store: device-resident matrix + metadata (port of
+``index/store.py``).
+
+Rows live in a device arena (fp32, or bf16 to halve its bytes) that grows
+geometrically, so an append is an O(1) row write. Rows are L2-normalized on
+the way in. Disk format: ``.npz`` (``embeddings``) + ``.json`` sidecar
+(``image_paths``, ``texts``), the JAX package's native format.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import warnings
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from clip_lora_match_tpu_torch.core.device import resolve_device
+
+log = logging.getLogger("clip_lora_match_tpu_torch.index")
+
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _l2norm_rows(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
+    n = np.linalg.norm(x, axis=-1, keepdims=True)
+    return x / np.maximum(n, eps)
+
+
+class EmbeddingIndex:
+    """In-memory, device-backed embedding index with metadata."""
+
+    def __init__(
+        self,
+        embeddings: Optional[np.ndarray] = None,
+        image_paths: Optional[Sequence[str]] = None,
+        texts: Optional[Sequence[str]] = None,
+        dim: int = 512,
+        normalize: bool = True,
+        capacity: int = 0,
+        storage_dtype: str = "float32",
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        if embeddings is None:
+            embeddings = np.zeros((0, dim), np.float32)
+        embeddings = np.asarray(embeddings, np.float32)
+        if embeddings.ndim != 2:
+            raise ValueError(f"embeddings must be (N, D), got {embeddings.shape}")
+        if normalize and embeddings.shape[0]:
+            embeddings = _l2norm_rows(embeddings)
+        self.dim = embeddings.shape[1]
+        self.size = embeddings.shape[0]
+        self.image_paths = list(image_paths or [])
+        self.texts = list(texts or [])
+        for name, meta in (("image_paths", self.image_paths), ("texts", self.texts)):
+            if meta and len(meta) != self.size:
+                warnings.warn(
+                    f"index metadata '{name}' has {len(meta)} entries for "
+                    f"{self.size} embedding rows"
+                )
+        self._storage_dtype = _STORAGE[storage_dtype]
+        cap = max(capacity, self.size, 1)
+        # ``lock`` is held by readers from taking ``embeddings`` through the
+        # end of their search, and by ``append`` while it swaps the arena
+        self.lock = threading.RLock()
+        self._arena = torch.zeros((cap, self.dim), dtype=self._storage_dtype, device=self.device)
+        if self.size:
+            self._arena[: self.size] = torch.from_numpy(embeddings).to(self.device)
+
+    # -- access ----------------------------------------------------------------
+
+    @property
+    def embeddings(self) -> torch.Tensor:
+        """(N, D) device view of the live rows."""
+        return self._arena[: self.size]
+
+    def embeddings_np(self) -> np.ndarray:
+        with self.lock:
+            return self.embeddings.float().cpu().numpy()
+
+    def metadata(self, i: int) -> tuple[Optional[str], Optional[str]]:
+        path = self.image_paths[i] if i < len(self.image_paths) else None
+        text = self.texts[i] if i < len(self.texts) else None
+        return path, text
+
+    def __len__(self) -> int:
+        return self.size
+
+    # -- mutation ---------------------------------------------------------------
+
+    def append(
+        self,
+        embedding: np.ndarray,
+        image_path: Optional[str] = None,
+        text: Optional[str] = None,
+        normalize: bool = True,
+    ) -> int:
+        """Append one row (the arena doubles when full). Returns its row id."""
+        vec = np.asarray(embedding, np.float32).reshape(-1)
+        if vec.shape[0] != self.dim:
+            raise ValueError(f"embedding dim {vec.shape[0]} != index dim {self.dim}")
+        if normalize:
+            vec = _l2norm_rows(vec[None])[0]
+        row = torch.from_numpy(vec).to(self.device)
+        with self.lock:
+            cap = self._arena.shape[0]
+            if self.size >= cap:
+                arena = torch.zeros(
+                    (max(2 * cap, 8), self.dim), dtype=self._storage_dtype, device=self.device
+                )
+                arena[: self.size] = self._arena[: self.size]
+                self._arena = arena
+            self._arena[self.size] = row
+            self.image_paths.append(image_path or "")
+            self.texts.append(text or "")
+            self.size += 1
+            return self.size - 1
+
+    # -- persistence -------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write ``.npz`` (embeddings, fp32) + ``.json`` sidecar."""
+        with self.lock:
+            emb = self.embeddings.float().cpu().numpy()
+            image_paths, texts = list(self.image_paths), list(self.texts)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, embeddings=emb)
+        side = path[:-4] if path.endswith(".npz") else path
+        with open(side + ".json", "w") as f:
+            json.dump({"image_paths": image_paths, "texts": texts}, f, ensure_ascii=False)
+
+    @classmethod
+    def load(
+        cls, path: str, dim: int = 512, device: str | torch.device = "cuda",
+        storage_dtype: str = "float32",
+    ) -> "EmbeddingIndex":
+        """Load ``.npz`` (+ ``.json``); a missing file gives an empty index."""
+        npz = path if path.endswith(".npz") else path + ".npz"
+        if not os.path.exists(npz):
+            log.info("index %s not found; starting empty", npz)
+            return cls(dim=dim, device=device, storage_dtype=storage_dtype)
+        with np.load(npz) as data:
+            emb = data["embeddings"]
+        side = npz[:-4] + ".json"
+        image_paths, texts = [], []
+        if os.path.exists(side):
+            with open(side) as f:
+                meta = json.load(f)
+            image_paths = meta.get("image_paths", meta.get("image_path", []))
+            texts = meta.get("texts", meta.get("text", []))
+        return cls(emb, image_paths, texts, device=device, storage_dtype=storage_dtype)

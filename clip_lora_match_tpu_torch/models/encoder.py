@@ -1,0 +1,198 @@
+"""High-level CLIP encoder (port of ``models/encoder.py::ClipEncoder``).
+
+Encodes text and images to L2-normalized float32 embeddings on ``device``
+(default ``"cuda"``). Kept from the JAX package: the batch buckets (padded
+batches sliced on exit), the 77→64 text slice, the dropped text padding mask
+in serving (causal masking makes it redundant for the EOT-pooled output),
+and bf16 compute with fp32 accumulation on the accelerator (fp32 on the CPU).
+
+The master weights stay fp32. A serving copy (matmul kernels and LoRA
+factors in the compute dtype, transformer layers unstacked into per-layer
+views) is built at the first encode and rebuilt only when the weights or the
+adapter change, so a request never re-reads the fp32 tree to cast it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from PIL import Image
+
+from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig
+from clip_lora_match_tpu_torch.core.device import resolve_device
+from clip_lora_match_tpu_torch.models import clip as clip_model
+from clip_lora_match_tpu_torch.models.io import to_device
+from clip_lora_match_tpu_torch.nn.layers import kernel_flags, unstack_blocks
+from clip_lora_match_tpu_torch.preprocess.pipeline import ClipPreprocessor
+
+_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 96, 128, 256, 512, 1024)
+
+# Batches whose real tokens all fit in 64 columns run the text tower at S=64.
+_TEXT_SEQ_SLICE = 64
+
+_DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _bucket(n: int) -> int:
+    for b in _BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // _BUCKETS[-1]) * _BUCKETS[-1]
+
+
+def _serving_tree(tree, dtype: Optional[torch.dtype], key: str = ""):
+    """Copy of a param/LoRA tree for the hot path: matmul operands
+    (``kernel``, ``a``, ``b``) cast to ``dtype``, everything else as is,
+    stacked ``blocks`` unstacked into per-layer lists."""
+    if isinstance(tree, dict):
+        out = {k: _serving_tree(v, dtype, k) for k, v in tree.items()}
+        if "blocks" in out:
+            out["blocks"] = unstack_blocks(out["blocks"])
+        return out
+    if dtype is not None and key in ("kernel", "a", "b"):
+        return tree.to(dtype)
+    return tree
+
+
+class ClipEncoder:
+    """Stateful wrapper around the functional CLIP towers."""
+
+    def __init__(
+        self,
+        params,
+        arch: ClipArchConfig | None = None,
+        config: ClipConfig | None = None,
+        lora=None,
+        lora_scaling: float = 1.0,
+        compute_dtype: Optional[str] = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        self.cfg = config or ClipConfig()
+        self.arch = arch or self.cfg.arch
+        on_cuda = self.device.type == "cuda"
+        # explicit compute dtype wins; else the config's compute dtype on
+        # CUDA and its storage dtype on the CPU; "float32" means fp32 compute
+        if compute_dtype is not None:
+            dt = compute_dtype
+        else:
+            dt = self.cfg.compute_dtype if on_cuda else self.cfg.dtype
+        self.compute_dtype = None if dt in (None, "float32") else _DTYPE_NAMES[dt]
+        self.params = to_device(params, self.device, torch.float32)
+        self.lora = None if lora is None else to_device(lora, self.device, torch.float32)
+        self.lora_scaling = lora_scaling
+        self.preprocessor = ClipPreprocessor(config=self.cfg)
+        self.eot_id = self.preprocessor.tokenizer.eot_id
+        self._serving = None
+
+    # -- LoRA -----------------------------------------------------------------
+
+    def attach_lora(self, lora_params, scaling: float) -> None:
+        self.lora = to_device(lora_params, self.device, torch.float32)
+        self.lora_scaling = scaling
+        self._serving = None
+
+    def merge_lora(self) -> None:
+        """Fold the adapter into the base weights (W' = W + s·A@B) and drop it."""
+        from clip_lora_match_tpu_torch.lora.adapter import merge_lora
+
+        if self.lora is not None:
+            self.params = merge_lora(self.params, self.lora, self.lora_scaling)
+            self.lora = None
+            self._serving = None
+
+    def _dispatch(self):
+        """The kernel switches are left at their per-tensor "auto" default
+        (kernels on CUDA tensors, the exact plain paths on the CPU); a config
+        with ``use_pallas_kernels: false`` runs this encoder's calls plain
+        (the switch is process-wide while such a call runs)."""
+        if self.cfg.use_pallas_kernels:
+            return contextlib.nullcontext()
+        return kernel_flags(fused_lora=False, small_attention=False)
+
+    def _serving_state(self):
+        if self._serving is None:
+            lora = None if self.lora is None else _serving_tree(self.lora, self.compute_dtype)
+            self._serving = (_serving_tree(self.params, self.compute_dtype), lora)
+        return self._serving
+
+    # -- batched encode (bucketed shapes) ----------------------------------------
+
+    @torch.inference_mode()
+    def encode_image_batch(self, pixel_values: np.ndarray, normalize: bool = True) -> np.ndarray:
+        """(N, H, W, 3) float32 → (N, projection_dim) float32 embeddings."""
+        n = pixel_values.shape[0]
+        if n == 0:
+            return np.zeros((0, self.arch.projection_dim), np.float32)
+        b = _bucket(n)
+        if b != n:
+            pad = np.zeros((b - n,) + pixel_values.shape[1:], pixel_values.dtype)
+            pixel_values = np.concatenate([pixel_values, pad])
+        params, lora = self._serving_state()
+        pix = torch.from_numpy(np.ascontiguousarray(pixel_values, np.float32)).to(self.device)
+        with self._dispatch():
+            feats = clip_model.encode_image_features(
+                params, pix, self.arch, lora=lora, lora_scaling=self.lora_scaling,
+                compute_dtype=self.compute_dtype,
+            )
+        if normalize:
+            feats = clip_model.l2_normalize(feats)
+        return feats[:n].float().cpu().numpy()
+
+    @torch.inference_mode()
+    def encode_text_batch(
+        self,
+        input_ids: np.ndarray,
+        attention_mask: Optional[np.ndarray] = None,
+        normalize: bool = True,
+    ) -> np.ndarray:
+        """(N, S) token ids → (N, projection_dim) float32 embeddings."""
+        n = input_ids.shape[0]
+        if n == 0:
+            return np.zeros((0, self.arch.projection_dim), np.float32)
+        if attention_mask is None:
+            attention_mask = np.ones_like(input_ids)
+        # trailing all-pad columns cannot reach the EOT-pooled output under
+        # causal masking, so a batch whose real tokens fit in 64 columns (and
+        # whose EOT survives the cut) runs at S=64
+        if (
+            input_ids.shape[1] > _TEXT_SEQ_SLICE
+            and not attention_mask[:, _TEXT_SEQ_SLICE:].any()
+            and (input_ids[:, :_TEXT_SEQ_SLICE] == self.eot_id).any(axis=1).all()
+        ):
+            input_ids = input_ids[:, :_TEXT_SEQ_SLICE]
+        b = _bucket(n)
+        if b != n:
+            pad_ids = np.full((b - n, input_ids.shape[1]), self.eot_id, input_ids.dtype)
+            input_ids = np.concatenate([input_ids, pad_ids])
+        params, lora = self._serving_state()
+        ids = torch.from_numpy(np.ascontiguousarray(input_ids, np.int64)).to(self.device)
+        # serving drops the padding mask: pads sit after the EOT position and
+        # the causal mask keeps them from influencing it
+        with self._dispatch():
+            feats = clip_model.encode_text_features(
+                params, ids, self.arch, attention_mask=None, eot_id=self.eot_id,
+                lora=lora, lora_scaling=self.lora_scaling, compute_dtype=self.compute_dtype,
+            )
+        if normalize:
+            feats = clip_model.l2_normalize(feats)
+        return feats[:n].float().cpu().numpy()
+
+    # -- convenience API ----------------------------------------------------------
+
+    def encode_image(self, img: str | Image.Image | Sequence, normalize: bool = True) -> np.ndarray:
+        """Single path/PIL image → (D,); a list → (N, D)."""
+        single = isinstance(img, (str, Image.Image))
+        items = [img] if single else list(img)
+        out = self.encode_image_batch(self.preprocessor.preprocess_images(items), normalize)
+        return out[0] if single else out
+
+    def encode_text(self, text: str | Sequence[str], normalize: bool = True) -> np.ndarray:
+        """Single str → (D,); a list → (N, D)."""
+        single = isinstance(text, str)
+        enc = self.preprocessor.preprocess_text(text)
+        out = self.encode_text_batch(enc["input_ids"], enc["attention_mask"], normalize)
+        return out[0] if single else out

@@ -1,0 +1,68 @@
+"""Weight bridge: the JAX package's flat ``.npz`` parameter files → torch trees.
+
+The JAX package writes its parameter tree with ``flatten_params``
+(``clip_lora_match_tpu/models/io.py``): one array per leaf under a
+``"/"``-joined key, the stacked leading layer axis and the ``(in, out)``
+kernel layout kept. ``params_from_numpy`` turns such a flat dict into the
+port's nested dict of tensors, unchanged in layout; the same holds for LoRA
+trees (``{"a": (L, in, r), "b": (L, r, out)}`` per projection).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+Params = dict[str, Any]
+_SEP = "/"
+
+
+def params_from_numpy(
+    flat: dict[str, np.ndarray],
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype | None = torch.float32,
+) -> Params:
+    """Flat ``{"a/b/c": array}`` → nested dict of tensors on ``device``.
+    Floating leaves take ``dtype`` (None keeps theirs); integer leaves keep
+    their type."""
+    from clip_lora_match_tpu_torch.core.device import resolve_device
+
+    tree: Params = {}
+    for key, value in flat.items():
+        parts = key.split(_SEP)
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return to_device(tree, resolve_device(device), dtype)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def to_device(tree, device, dtype: torch.dtype | None = None):
+    """Nested dict of numpy arrays or tensors → tensors on ``device``
+    (floating leaves cast to ``dtype`` when given)."""
+
+    def conv(x):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x, copy=True))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    return tree_map(conv, tree)
+
+
+def load_params(
+    path: str, device: str | torch.device = "cuda", dtype: torch.dtype | None = torch.float32
+) -> Params:
+    """Load a flat ``.npz`` written by either package."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    return params_from_numpy(flat, device=device, dtype=dtype)

@@ -1,0 +1,309 @@
+"""Functional NN building blocks for the CLIP towers (PyTorch port).
+
+Port of ``clip_lora_match_tpu/nn/layers.py``: plain functions over nested
+dicts of tensors, kernels as ``(in, out)``, transformer stacks with a leading
+layer axis. Numerics kept: LayerNorm in fp32; quick-gelu; fp32 accumulation
+in every matmul; under a bf16 ``compute_dtype`` the matmul output and the
+bias/LoRA adds are bf16. LoRA adapters are ``{"a": (in, r), "b": (r, out)}``.
+
+Kernel dispatch follows the same switches as the JAX package:
+``fused_lora`` sends each adapted projection through ``ops.lora_matmul``;
+``small_attention`` sends S <= ``SMALL_ATTN_MAX_SEQ`` (or causal
+S <= ``SMALL_ATTN_CAUSAL_MAX_SEQ``) through ``ops.attention_small``.
+Each switch is ``"auto"`` (the default: the kernel branch for tensors on the
+card, the exact plain path for CPU tensors), ``True`` (the kernel branch for
+every tensor; on the CPU the wrapper runs the kernel's plain version) or
+``False`` (the plain path everywhere). The choice is made per call from the
+tensor's device, so encoders on different devices never switch each other.
+``flash_attention`` and ``fused_mlp`` are kept as names only: their kernels are
+not ported and turning them on raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Optional
+
+import torch
+
+Params = dict[str, Any]
+
+# Kernel-dispatch switches: "auto", True or False (see the module docstring).
+_KERNEL_FLAGS = {
+    "fused_lora": "auto",
+    "flash_attention": False,
+    "small_attention": "auto",
+    "fused_mlp": False,
+}
+
+SMALL_ATTN_MAX_SEQ = 64
+SMALL_ATTN_CAUSAL_MAX_SEQ = 80
+
+
+def set_kernel_flags(
+    fused_lora: bool | str | None = None,
+    flash_attention: bool | str | None = None,
+    small_attention: bool | str | None = None,
+    fused_mlp: bool | None = None,
+) -> dict:
+    """Set the process-wide kernel dispatch; returns the previous flags."""
+    prev = dict(_KERNEL_FLAGS)
+    if flash_attention not in (None, False, "auto") or fused_mlp:
+        raise NotImplementedError(
+            "flash_attention and fused_mlp kernels are not ported to CUDA yet"
+        )
+    for val in (fused_lora, small_attention):
+        if val not in (None, True, False, "auto"):
+            raise ValueError(f"kernel flag must be True, False or 'auto', got {val!r}")
+    for name, val in (
+        ("fused_lora", fused_lora),
+        ("flash_attention", flash_attention),
+        ("small_attention", small_attention),
+        ("fused_mlp", fused_mlp),
+    ):
+        if val is not None:
+            _KERNEL_FLAGS[name] = val
+    return prev
+
+
+def get_kernel_flags() -> tuple:
+    """Hashable snapshot of the dispatch flags."""
+    return tuple(sorted(_KERNEL_FLAGS.items()))
+
+
+@contextlib.contextmanager
+def kernel_flags(**flags):
+    """``set_kernel_flags`` for the body of a ``with``; the previous flags
+    come back on exit."""
+    prev = set_kernel_flags(**flags)
+    try:
+        yield
+    finally:
+        _KERNEL_FLAGS.update(prev)
+
+
+def _kernel_on(name: str, x: torch.Tensor) -> bool:
+    flag = _KERNEL_FLAGS[name]
+    return flag is True or (flag == "auto" and x.is_cuda)
+
+
+def uses_small_attention(x: torch.Tensor, causal: bool = False) -> bool:
+    """Whether ``attention`` on ``x`` (B, S, D) takes the small-attention
+    kernel branch, which builds a causal mask itself and reads no additive one."""
+    S = x.shape[1]
+    return _kernel_on("small_attention", x) and (
+        S <= SMALL_ATTN_MAX_SEQ or (causal and S <= SMALL_ATTN_CAUSAL_MAX_SEQ)
+    )
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in fp32, cast back to the input dtype."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def _lora_delta(x: torch.Tensor, lora: Params, scaling: float) -> torch.Tensor:
+    """scaling · round(x @ a) @ b in fp32 (the adapter branch of ``linear``)."""
+    a = lora["a"].to(x.dtype)
+    b = lora["b"].to(x.dtype)
+    xa = (x.float() @ a.float()).to(x.dtype)
+    return scaling * (xa.float() @ b.float())
+
+
+def linear(
+    p: Params,
+    x: torch.Tensor,
+    lora: Optional[Params] = None,
+    lora_scaling: float = 1.0,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """y = x @ kernel + bias [+ lora_scaling · (x @ a) @ b], in x's dtype."""
+    out_dtype = x.dtype
+    w = p["kernel"]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    bias = p.get("bias")
+    if lora is not None and _kernel_on("fused_lora", x):
+        from clip_lora_match_tpu_torch.ops.lora_matmul import lora_matmul
+
+        shape = x.shape
+        y = lora_matmul(
+            x.reshape(-1, shape[-1]), w, lora["a"].to(x.dtype), lora["b"].to(x.dtype),
+            scaling=float(lora_scaling),
+        ).reshape(*shape[:-1], w.shape[-1])
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return y.to(out_dtype)
+    acc_dtype = torch.float32 if compute_dtype is None else compute_dtype
+    # a matmul of two bf16 tensors accumulates in fp32 and rounds its output
+    # once: the JAX package's dot with preferred_element_type=bf16
+    y = torch.matmul(x, w).to(acc_dtype)
+    if lora is not None:
+        y = y + _lora_delta(x, lora, lora_scaling).to(acc_dtype)
+    if bias is not None:
+        y = y + bias.to(acc_dtype)
+    return y.to(out_dtype)
+
+
+def _lora_get(block: Optional[Params], name: str) -> Optional[Params]:
+    return None if block is None else block.get(name)
+
+
+def attention(
+    p: Params,
+    x: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    lora: Optional[Params] = None,
+    lora_scaling: float = 1.0,
+    compute_dtype: Optional[torch.dtype] = None,
+    causal: bool = False,
+    key_lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-head self-attention with an optional additive mask.
+
+    ``causal``/``key_lengths`` describe ``mask`` structurally; the small
+    attention kernel rebuilds it from them, so ``mask`` may be None where
+    ``uses_small_attention`` holds. Without an adapter (or with
+    ``fused_lora`` off) q/k/v run as one fused (D, 3D) matmul and the LoRA
+    deltas are added per projection; with an adapter and ``fused_lora`` on,
+    each projection runs ``lora_matmul``.
+    """
+    B, S, D = x.shape
+    H = num_heads
+    hd = D // H
+    kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype)
+    names = ("q_proj", "k_proj", "v_proj")
+    xc = x if compute_dtype is None else x.to(compute_dtype)
+    if lora is not None and _kernel_on("fused_lora", x):
+        # x is cast once for the three projections
+        q, k, v = (linear(p[n], xc, _lora_get(lora, n), **kw).to(x.dtype) for n in names)
+    else:
+        acc_dtype = torch.float32 if compute_dtype is None else compute_dtype
+        w_qkv = torch.cat([p[n]["kernel"] for n in names], dim=1)
+        if compute_dtype is not None:
+            w_qkv = w_qkv.to(compute_dtype)
+        qkv = torch.matmul(xc, w_qkv).to(acc_dtype)
+        biases = [p[n].get("bias") for n in names]
+        if any(b is not None for b in biases):
+            parts = [
+                b if b is not None else torch.zeros(D, device=x.device) for b in biases
+            ]
+            qkv = qkv + torch.cat(parts).to(qkv.dtype)
+        q, k, v = qkv.split(D, dim=-1)
+        out = []
+        for name, t in zip(names, (q, k, v)):
+            lp = _lora_get(lora, name)
+            if lp is not None:
+                t = t + _lora_delta(xc, lp, lora_scaling).to(qkv.dtype)
+            out.append(t.to(x.dtype))
+        q, k, v = out
+
+    qh = q.reshape(B, S, H, hd)
+    kh = k.reshape(B, S, H, hd)
+    vh = v.reshape(B, S, H, hd)
+    if uses_small_attention(x, causal):
+        from clip_lora_match_tpu_torch.ops.attention_small import attention_small
+
+        if causal:
+            ctx = attention_small(
+                qh, kh, vh, scale=hd ** -0.5, causal=True, lengths=key_lengths
+            )
+        else:
+            ctx = attention_small(qh, kh, vh, mask=mask, scale=hd ** -0.5)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", (qh * hd ** -0.5).float(), kh.float())
+        if mask is not None:
+            scores = scores + mask.float()
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh.float())
+    ctx = ctx.to(x.dtype).reshape(B, S, D)
+    return linear(p["out_proj"], ctx, _lora_get(lora, "out_proj"), **kw)
+
+
+def mlp(
+    p: Params,
+    x: torch.Tensor,
+    lora: Optional[Params] = None,
+    lora_scaling: float = 1.0,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype)
+    h = quick_gelu(linear(p["fc1"], x, _lora_get(lora, "fc1"), **kw))
+    return linear(p["fc2"], h, _lora_get(lora, "fc2"), **kw)
+
+
+def transformer_block(
+    p: Params,
+    x: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    lora: Optional[Params] = None,
+    lora_scaling: float = 1.0,
+    eps: float = 1e-5,
+    compute_dtype: Optional[torch.dtype] = None,
+    causal: bool = False,
+    key_lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Pre-LN residual block: LN → attn → +res; LN → MLP → +res."""
+    x = x + attention(
+        p["attn"], layer_norm(p["ln_1"], x, eps), num_heads, mask=mask,
+        lora=_lora_get(lora, "attn"), lora_scaling=lora_scaling,
+        compute_dtype=compute_dtype, causal=causal, key_lengths=key_lengths,
+    )
+    x = x + mlp(
+        p["mlp"], layer_norm(p["ln_2"], x, eps), lora=_lora_get(lora, "mlp"),
+        lora_scaling=lora_scaling, compute_dtype=compute_dtype,
+    )
+    return x
+
+
+def unstack_blocks(blocks) -> list[Params]:
+    """Stacked tree (leading layer axis on every leaf) → list of per-layer
+    trees (views, no copies). A list passes through unchanged."""
+    if isinstance(blocks, list):
+        return blocks
+
+    def leaf0(t):
+        return leaf0(next(iter(t.values()))) if isinstance(t, dict) else t
+
+    def take(t, i):
+        return {k: take(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
+
+    return [take(blocks, i) for i in range(leaf0(blocks).shape[0])]
+
+
+def transformer(
+    blocks,
+    x: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    lora_blocks=None,
+    lora_scaling: float = 1.0,
+    eps: float = 1e-5,
+    compute_dtype: Optional[torch.dtype] = None,
+    causal: bool = False,
+    key_lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Run a layer stack: a Python loop over the leading layer axis.
+    ``blocks``/``lora_blocks`` are stacked trees or per-layer lists."""
+    layers = unstack_blocks(blocks)
+    lora_layers = unstack_blocks(lora_blocks) if lora_blocks is not None else None
+    for i, blk in enumerate(layers):
+        x = transformer_block(
+            blk, x, num_heads, mask=mask,
+            lora=None if lora_layers is None else lora_layers[i],
+            lora_scaling=lora_scaling, eps=eps, compute_dtype=compute_dtype,
+            causal=causal, key_lengths=key_lengths,
+        )
+    return x

@@ -1,0 +1,126 @@
+"""Whole-sequence small attention: CUDA kernel, plain version and wrapper.
+
+Port of ``clip_lora_match_tpu/ops/attention_small.py``. q, k, v are
+(B, S, H, hd) in the projection layout, untransposed. Softmax is the
+max-free form ``exp(min(s, 80))`` normalized after P·V by
+``max(sum, 1e-30)``: exact softmax for row logits in (-87, 80), zeros for a
+fully masked row. Mask modes: none; structural (``causal`` and/or ``lengths``
+(B,), rebuilt inside the kernel); or an additive ``mask`` broadcastable to
+(B, 1, S, S). The kernel is ``csrc/attention_small.cu``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from clip_lora_match_tpu_torch.ops import _build
+
+NEG_INF = torch.finfo(torch.float32).min
+MAX_SEQ = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def struct_mask(
+    causal: bool, lengths: Optional[torch.Tensor], S: int, device
+) -> Optional[torch.Tensor]:
+    """Additive (B|1, 1, S, S) fp32 mask equal to the structural mode."""
+    out = None
+    if causal:
+        out = torch.triu(torch.full((S, S), NEG_INF, device=device), diagonal=1)[None, None]
+    if lengths is not None:
+        kcol = torch.arange(S, device=device)[None, None, None, :]
+        pad = torch.where(
+            kcol < lengths.to(device)[:, None, None, None],
+            torch.zeros((), device=device), torch.full((), NEG_INF, device=device),
+        )
+        out = pad if out is None else out + pad
+    return out
+
+
+def attention_small_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    causal: bool = False,
+    lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (fp32 scores and P·V, P
+    rounded to the input dtype before the P·V product, as the kernel does)."""
+    B, S, H, hd = q.shape
+    if scale is None:
+        scale = float(hd) ** -0.5
+    if mask is not None and (causal or lengths is not None):
+        raise ValueError("pass EITHER an additive mask OR causal/lengths, not both")
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    pen = mask.float() if mask is not None else struct_mask(causal, lengths, S, q.device)
+    if pen is not None:
+        scores = scores + pen
+    e = torch.exp(torch.clamp(scores, max=80.0))
+    ctx = torch.einsum("bhqk,bkhd->bqhd", e.to(q.dtype).float(), v.float())
+    denom = e.sum(-1).clamp_min(1e-30).permute(0, 2, 1)[..., None]  # (B, S, H, 1)
+    return (ctx / denom).to(q.dtype)
+
+
+def _launch(q, k, v, mask, scale, causal, lengths) -> torch.Tensor:
+    B, S, H, hd = q.shape
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"attention_small: float32 or bfloat16 q/k/v, got {q.dtype}")
+    if hd != 64 or S > MAX_SEQ:
+        raise ValueError(f"attention_small kernel: head_dim 64 and S <= {MAX_SEQ}, got {q.shape}")
+    for t in (k, v):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError("attention_small: q, k, v must share shape and device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    len_ptr, mask_ptr, mask_bstride = None, None, 0
+    if lengths is not None:
+        lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+        if lengths.shape != (B,):
+            raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
+        len_ptr = lengths.data_ptr()
+    if mask is not None:
+        mask = mask.to(device=q.device, dtype=torch.float32)
+        nb = 1 if mask.shape[0] == 1 else B
+        mask = mask.expand(nb, 1, S, S).contiguous()
+        mask_ptr, mask_bstride = mask.data_ptr(), (0 if nb == 1 else S * S)
+    out = torch.empty_like(q)
+    lib = _build.load("attention_small")
+    rc = lib.attention_small_fwd(
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(len_ptr), ctypes.c_void_p(mask_ptr),
+        ctypes.c_longlong(mask_bstride), ctypes.c_int(B), ctypes.c_int(S),
+        ctypes.c_int(H), ctypes.c_int(hd), ctypes.c_float(scale),
+        ctypes.c_int(int(causal)), ctypes.c_int(_DTYPES[q.dtype]),
+        ctypes.c_void_p(_build.stream_ptr(q)),
+    )
+    _build.check(rc, "attention_small_fwd")
+    attention_small.launches += 1
+    return out
+
+
+def attention_small(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    causal: bool = False,
+    lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, S, H, hd) context. CUDA tensors launch the kernel; CPU tensors run
+    ``attention_small_plain``."""
+    if scale is None:
+        scale = float(q.shape[-1]) ** -0.5
+    if mask is not None and (causal or lengths is not None):
+        raise ValueError("pass EITHER an additive mask OR causal/lengths, not both")
+    if q.device.type == "cpu":
+        return attention_small_plain(q, k, v, mask, scale, causal, lengths)
+    return _launch(q, k, v, mask, float(scale), causal, lengths)
+
+
+attention_small.launches = 0

@@ -49,6 +49,7 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test (full-size models)")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU and nvcc; skips elsewhere")
 
 
 def pytest_collection_modifyitems(config, items):

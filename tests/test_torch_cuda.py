@@ -1,0 +1,177 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``cuda``: they need an NVIDIA GPU with nvcc and skip elsewhere. Run on
+the card with ``python -m pytest tests/test_torch_cuda.py -q -m cuda``. These
+cover the edges the main-path shapes in chip_smoke.py do not: ragged tiles,
+the largest rank / sequence / k each kernel takes, fully masked rows, shared
+and per-batch additive masks, and the wrappers' refusals.
+"""
+
+import pytest
+import torch
+
+from clip_lora_match_tpu_torch.ops import attention_small as A
+from clip_lora_match_tpu_torch.ops import lora_matmul as L
+from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+
+pytestmark = pytest.mark.cuda
+
+NEG = torch.finfo(torch.float32).min
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rand(gen, *shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(*shape, device="cuda", generator=gen) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,mode",
+    [(2, 1, 2, "none"), (3, 33, 3, "none"), (2, 128, 2, "none"),
+     (3, 77, 2, "lengths"), (2, 80, 4, "causal"), (2, 50, 2, "shared_mask"),
+     (2, 50, 2, "batch_mask")],
+)
+def test_attention_small_kernel(gen, B, S, H, mode, dtype):
+    q, k, v = (_rand(gen, B, S, H, 64, dtype=dtype) for _ in range(3))
+    kw = {}
+    if mode == "lengths":
+        kw = dict(causal=True, lengths=torch.tensor([S, 9, 0], device="cuda", dtype=torch.int32))
+    elif mode == "causal":
+        kw = dict(causal=True)
+    elif mode == "shared_mask":
+        m = torch.zeros(1, 1, S, S, device="cuda")
+        m[..., S // 2:] = NEG
+        kw = dict(mask=m)
+    elif mode == "batch_mask":
+        m = torch.zeros(B, 1, S, S, device="cuda")
+        m[1, 0, 3, :] = NEG  # a fully masked query row
+        kw = dict(mask=m)
+    got = A.attention_small(q, k, v, **kw)
+    ref = A.attention_small_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+    if mode == "batch_mask":
+        assert torch.all(got[1, 3] == 0)
+    if mode == "lengths":
+        assert torch.all(got[2] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "M,K,N,r",
+    [(1, 1, 1, 1), (65, 130, 70, 8), (33, 96, 80, 20), (257, 768, 3072, 32), (50, 768, 768, 8)],
+)
+def test_lora_matmul_kernel(gen, M, K, N, r, dtype):
+    x = _rand(gen, M, K, dtype=dtype)
+    w = _rand(gen, K, N, dtype=dtype, scale=K ** -0.5)
+    a = _rand(gen, K, r, dtype=dtype, scale=K ** -0.5)
+    b = _rand(gen, r, N, dtype=dtype, scale=0.1)
+    got = L.lora_matmul(x, w, a, b, 2.0)
+    ref = L.lora_matmul_plain(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    scale = ref.float().abs().max().item() + 1e-6
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert (got.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+def test_lora_matmul_kernel_on_an_unaligned_view(gen):
+    # a contiguous view that starts one element into its storage: the bf16
+    # tile loads must not assume 16-byte alignment of the base pointer
+    M, K, N, r = 70, 64, 64, 8
+    bf = torch.bfloat16
+    x = _rand(gen, M * K + 1, dtype=bf)[1:].view(M, K)
+    w = _rand(gen, K, N, dtype=bf, scale=K ** -0.5)
+    a = _rand(gen, K, r, dtype=bf, scale=K ** -0.5)
+    b = _rand(gen, r, N, dtype=bf, scale=0.1)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = L.lora_matmul(x, w, a, b, 2.0)
+    ref = L.lora_matmul_plain(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,N,D,k", [(1, 1, 8, 1), (9, 257, 40, 7), (3, 5000, 512, 256), (17, 3001, 64, 10)])
+def test_topk_retrieve_kernel(gen, Q, N, D, k, dtype):
+    index = torch.nn.functional.normalize(_rand(gen, N, D), dim=1).to(dtype)
+    queries = _rand(gen, Q, D)
+    s, i = R.topk_retrieve(queries, index, k)
+    rs, ri = R.topk_retrieve_plain(queries, index, k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
+    # ids equal except where plain scores are within 1e-5 of a neighbour
+    near = torch.zeros_like(rs, dtype=torch.bool)
+    if k > 1:
+        close = (rs[:, :-1] - rs[:, 1:]) <= 1e-5
+        near[:, :-1] |= close
+        near[:, 1:] |= close
+    assert torch.equal(i[~near], ri[~near])
+
+
+def test_topk_retrieve_kernel_ties_take_the_lower_id(gen):
+    index = torch.nn.functional.normalize(_rand(gen, 1000, 64), dim=1)
+    index[700] = index[3]
+    index[300] = index[3]
+    s, i = R.topk_retrieve(index[3:4] * 2, index, 3)
+    assert i[0].tolist() == [3, 300, 700]
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = _rand(gen, 1, 8, 2, 32)
+    with pytest.raises(ValueError):
+        A.attention_small(q, q, q)  # head_dim 32
+    h = torch.float16
+    with pytest.raises(TypeError):
+        L.lora_matmul(_rand(gen, 4, 8, dtype=h), _rand(gen, 8, 8, dtype=h),
+                      _rand(gen, 8, 2, dtype=h), _rand(gen, 2, 8, dtype=h))
+    with pytest.raises(ValueError):
+        R.topk_retrieve(_rand(gen, 1, 8), _rand(gen, 300, 8), 300)  # k > 256
+
+
+def test_launch_counters_count_kernel_launches(gen):
+    from clip_lora_match_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    q = _rand(gen, 1, 5, 2, 64)
+    A.attention_small(q, q, q)
+    A.attention_small(q.cpu(), q.cpu(), q.cpu())  # CPU: the plain version, no launch
+    R.topk_retrieve(_rand(gen, 1, 8), torch.nn.functional.normalize(_rand(gen, 20, 8), dim=1), 2)
+    assert ops.launch_counts() == {"attention_small": 1, "lora_matmul": 0, "topk_retrieve": 1}
+
+
+def test_a_cpu_encoder_leaves_the_card_encoders_kernels_on(gen):
+    import numpy as np
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig, LoraConfig
+    from clip_lora_match_tpu_torch.lora.adapter import init_lora
+    from clip_lora_match_tpu_torch.models.clip import init_params
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+
+    arch = ClipArchConfig(
+        image_size=64, patch_size=32, vision_width=128, vision_layers=2, vision_heads=2,
+        vision_mlp_dim=256, text_width=128, text_layers=2, text_heads=2, text_mlp_dim=256,
+        projection_dim=64,
+    )
+    lcfg = LoraConfig()
+    encs = {}
+    for dev in ("cuda", "cpu"):  # the CPU encoder is built after the card's
+        enc = ClipEncoder(init_params(0, arch, device=dev), arch=arch,
+                          config=ClipConfig(arch=arch), device=dev)
+        enc.attach_lora(init_lora(1, arch, lcfg, device=dev), lcfg.scaling)
+        encs[dev] = enc
+    pix = np.zeros((1, 64, 64, 3), np.float32)
+    per_pair = {"attention_small": 4, "lora_matmul": 16, "topk_retrieve": 0}  # 2 towers x 2 layers
+    ops.reset_launch_counts()
+    for dev in ("cuda", "cpu", "cuda"):
+        encs[dev].encode_text("tas pink")
+        encs[dev].encode_image_batch(pix)
+    assert ops.launch_counts() == {k: 2 * v for k, v in per_pair.items()}
