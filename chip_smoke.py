@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's seeker read path on one NVIDIA GPU.
+"""Drive the PyTorch port's seeker and finder paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,33 +8,48 @@ Phases (any failure raises and exits non-zero):
    build of every kernel in clip_lora_match_tpu_torch/ops/csrc/ (one nvcc per
    source, all at once) into build/torch_kernels/;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it, with kernel / plain / library times and the bound;
+   the main paths give it, with kernel / plain / library times and the bound
+   (the pass-1 tile-max kernels over 524,298- and 1,048,586-row indexes, and
+   the two-pass routes through them against the plain route);
 3. the main path at full ViT-B/32 width with a seeded r=8, alpha=16 LoRA:
    text, image and fused SeekerService.search_items requests over a
    44,446-row fp32 index, self-retrieval checks, launch-count checks, a
    96-image / 256-text batch held against the plain fp32 path, request
    latency, host preprocessing time, batch throughput, and device time by
-   kernel (torch.profiler) for one fused request and one 96-image batch.
+   kernel (torch.profiler) for one fused request and one 96-image batch;
+4. the same requests at HBM scale, each configuration with its own counted
+   run: (a) a 1,048,586-row fp32 index (two-pass, tilemax_sup), (b) its first
+   524,288 seeded rows and the 10 custom rows in a bf16 arena (tilemax),
+   (c) (a) served from the int8 index (tilemax_sup_q8, hierarchical), (d) a
+   44,446-row index served int8 (tilemax_sup_q8, flat route); a 64-query
+   search_batch against the plain route; request latency; then a
+   FinderService.report_item into (c)'s index with a SqliteStore, found by
+   the next search, the int8 copy extended by one row.
 The last line is {"ok": true, "device": {...}}; the line before it is the
-kernel table as JSON. Exits non-zero without a CUDA device or without the
-port's package beside it.
+card's name and power limit, and the one before that the kernel table as
+JSON. Exits non-zero without a CUDA device or without the port's package
+beside it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 SEED = 0
 INDEX_ROWS = 44_436  # random unit rows; +5 texts +5 images = 44,446
+HBM_ROWS = 1_048_576  # phase 4 (a), (c): seeded unit rows; +10 custom rows
+BF16_ROWS = 524_288  # phase 4 (b)
 # a CPU encoder built beside the card's (head_dim 64, two layers a tower)
 TINY_ARCH = dict(
     image_size=64, patch_size=32, vision_width=128, vision_layers=2, vision_heads=2,
@@ -47,6 +62,9 @@ KERNELS = {
     "attention_small": ("attention_small", "clip_lora_match_tpu/ops/attention_small.py:302"),
     "lora_matmul": ("lora_matmul", "clip_lora_match_tpu/ops/lora_matmul.py:84"),
     "topk_retrieve": ("retrieval_topk", "clip_lora_match_tpu/ops/retrieval_topk.py:150"),
+    "tilemax": ("retrieval_tilemax", "clip_lora_match_tpu/ops/retrieval_topk.py:526"),
+    "tilemax_sup": ("retrieval_tilemax", "clip_lora_match_tpu/ops/retrieval_topk.py:442"),
+    "tilemax_sup_q8": ("retrieval_tilemax", "clip_lora_match_tpu/ops/retrieval_topk.py:830"),
 }
 
 
@@ -205,6 +223,114 @@ def check_topk(torch, ops_topk, gen):
     return rows, worst
 
 
+def assert_ids_tie_aware(torch, what, i, rs, ri, tol):
+    """Ids equal wherever the plain scores are more than ``tol`` from a
+    neighbour: a swap is allowed only inside a tie."""
+    diff = i != ri
+    if diff.any():
+        pad, step = torch.nn.functional.pad, rs[:, :-1] - rs[:, 1:]
+        gap = torch.minimum(pad(step, (0, 1), value=1.0), pad(step, (1, 0), value=1.0))
+        if (gap[diff] > tol).any():
+            raise AssertionError(f"{what}: ids differ outside ties")
+
+
+def check_pass1(torch, R, gen):
+    """The three tile-max kernels against their plain versions, and the
+    two-pass routes through them against the plain route. Each kernel's
+    first row is the shape its main path (phase 4) gives it."""
+    D, tile, group = 512, 16, R.HIER_GROUP
+    n_small, n_big = BF16_ROWS + 10, HBM_ROWS + 10
+    base = torch.nn.functional.normalize(torch.randn(n_big, D, device="cuda", generator=gen), dim=1)
+    out = {"tilemax": ([], 0.0), "tilemax_sup": ([], 0.0), "tilemax_sup_q8": ([], 0.0)}
+
+    def record(name, shape, err, ms, plain_ms, library_ms, nbytes, ops_, kind):
+        rows, worst = out[name]
+        b_ms, b_by = bound_ms(nbytes, ops_, kind)
+        rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+        out[name] = (rows, max(worst, err))
+
+    def routes(what, queries, run, tol):
+        for k in (5, 64):
+            s, i = run(queries, k, None)
+            rs, ri = run(queries, k, False)
+            torch.cuda.synchronize()
+            err = (s - rs).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{what} k={k}: kernel route vs plain route score err {err}")
+            assert_ids_tie_aware(torch, f"{what} k={k}", i, rs, ri, tol)
+
+    for name, N, dtypes in (("tilemax", n_small, ("bf16", "fp32")),
+                            ("tilemax_sup", n_big, ("fp32", "bf16"))):
+        n_al = N // tile * tile
+        for kind in dtypes:
+            index = base[:N].to(torch.bfloat16 if kind == "bf16" else torch.float32)
+            for Q in (1, 64):
+                queries = torch.randn(Q, D, device="cuda", generator=gen)
+                qc = R._normalize(queries).to(index.dtype)
+                if name == "tilemax":
+                    got, ref = R.tilemax(qc, index, tile), R.tilemax_plain(qc, index, tile)
+                    kern = lambda: R.tilemax(qc, index, tile)  # noqa: E731
+                    plain = lambda: R.tilemax_plain(qc, index, tile)  # noqa: E731
+                    n_out = Q * (-(-N // tile))
+                else:
+                    got = torch.cat(R.tilemax_sup(qc, index, tile, group), 1)
+                    ref = torch.cat(R.tilemax_sup_plain(qc, index, tile, group), 1)
+                    kern = lambda: R.tilemax_sup(qc, index, tile, group)  # noqa: E731
+                    plain = lambda: R.tilemax_sup_plain(qc, index, tile, group)  # noqa: E731
+                    n_out = got.numel()
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                if not err <= 1e-5:
+                    raise AssertionError(f"{name} Q={Q} N={N} {kind}: max err {err}")
+                record(
+                    name, f"Q={Q} N={N} D={D} tile={tile}{f' group={group}' if name != 'tilemax' else ''} "
+                    f"{kind} index", err, cuda_ms(torch, kern), cuda_ms(torch, plain),
+                    cuda_ms(torch, lambda: torch.matmul(qc, index[:n_al].T).view(Q, -1, tile).amax(2)),
+                    N * D * index.element_size() + Q * D * index.element_size() + 4 * n_out,
+                    2 * Q * N * D, kind,
+                )
+                routes(f"two-pass {name} Q={Q} {kind}", queries,
+                       lambda q, k, p: R.topk_retrieve_twopass(q, index, k, pallas_pass1=p), 1e-5)
+            del index
+
+    values, scales = R.quantize_index_int8(base)
+    del base
+    for Q in (1, 64):
+        queries = torch.randn(Q, D, device="cuda", generator=gen)
+        qq, _ = R._quantize_queries(queries)
+        for mxu in ("int8", "bf16") if Q == 64 else ("int8",):
+            got = torch.cat(R.tilemax_sup_q8(qq, values, scales, tile, group, mxu), 1)
+            ref = torch.cat(R.tilemax_sup_q8_plain(qq, values, scales, tile, group), 1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"tilemax_sup_q8 Q={Q} mxu={mxu}: maxima not bit-equal "
+                                     f"(max err {(got - ref).abs().max().item()})")
+        library = None
+        n_al = n_big // tile * tile
+        # torch._int_mm takes more than 16 rows: a smaller query block is
+        # padded with zero rows to 17, and only its own rows are scaled
+        qp = torch.nn.functional.pad(qq, (0, 0, 0, max(0, 17 - Q)))
+
+        def library_call():
+            dots = torch._int_mm(qp, values[:n_al].T)[:Q]
+            return (dots.float() * scales[:n_al, 0]).view(Q, -1, tile).amax(2)
+        try:
+            library = cuda_ms(torch, library_call)
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            log(f"library int8 matmul not timed: {str(e).splitlines()[0]}")
+        pad_note = f" (library: query padded to {qp.shape[0]} rows)" if qp.shape[0] != Q else ""
+        record(
+            "tilemax_sup_q8", f"Q={Q} N={n_big} D={D} tile={tile} group={group} int8 index{pad_note}", 0.0,
+            cuda_ms(torch, lambda: R.tilemax_sup_q8(qq, values, scales, tile, group)),
+            cuda_ms(torch, lambda: R.tilemax_sup_q8_plain(qq, values, scales, tile, group)),
+            library, n_big * D + n_big * 4 + Q * D + 4 * got.numel(), 2 * Q * n_big * D, "int8",
+        )
+        routes(f"q8 two-pass Q={Q}", queries,
+               lambda q, k, p: R.topk_retrieve_q8(q, values, scales, k, pallas_pass1=p), 0.0)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -315,6 +441,7 @@ def main_path(torch, card: str):
         "attention_small": 4 * n * layers,      # 12 per single-tower request
         "lora_matmul": 4 * 4 * n * layers,      # q/k/v/out per layer per tower
         "topk_retrieve": 3 * n,                 # one search per request
+        "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,  # N < TWOPASS_MIN_N
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -407,7 +534,184 @@ def main_path(torch, card: str):
         if not cos.min() >= 0.99:
             raise AssertionError(f"{name} batch: min cosine {cos.min()} < 0.99")
         log(f"{name} batch kernel path (bf16) vs plain path (fp32): min cosine {cos.min():.6f}")
-    return counts, lat, thr
+    return counts, (enc, texts, images, paths)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the seeker and finder at HBM scale
+# ---------------------------------------------------------------------------
+
+
+def _latency(torch, calls) -> dict:
+    lat = {}
+    for name, call in calls:
+        call()
+        samples = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t) * 1e3)
+        lat[name] = statistics.median(samples)
+    return lat
+
+
+def hbm_path(torch, card, enc, texts, images, paths):
+    """Phase 4: four index configurations, each with its own counted run,
+    then the finder's append into (c). Returns the launches of each
+    configuration's run."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.db.store import SqliteStore
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+    from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+    from clip_lora_match_tpu_torch.retrieval import search as search_mod
+    from clip_lora_match_tpu_torch.services.finder import FinderConfig, FinderService
+    from clip_lora_match_tpu_torch.services.seeker import SeekerConfig, SeekerService
+
+    n = len(texts)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    noise = torch.randn(HBM_ROWS, enc.arch.projection_dim, device="cuda", generator=gen).cpu().numpy()
+    custom = np.concatenate([enc.encode_text(texts), enc.encode_image(images)])
+    meta_paths, meta_texts = list(paths) * 2, list(texts) * 2
+    index_a = EmbeddingIndex(
+        np.concatenate([noise, custom]), [""] * HBM_ROWS + meta_paths, [""] * HBM_ROWS + meta_texts,
+        capacity=HBM_ROWS + 64, device="cuda",
+    )
+    index_b = EmbeddingIndex(
+        np.concatenate([noise[:BF16_ROWS], custom]), [""] * BF16_ROWS + meta_paths,
+        [""] * BF16_ROWS + meta_texts, storage_dtype="bfloat16", device="cuda",
+    )
+    index_d = EmbeddingIndex(
+        np.concatenate([noise[:INDEX_ROWS], custom]), [""] * INDEX_ROWS + meta_paths,
+        [""] * INDEX_ROWS + meta_texts, device="cuda",
+    )
+    del noise
+    torch.cuda.synchronize()
+    log(f"phase 4 set-up: {time.perf_counter() - t0:.3f} s; (a) {len(index_a)} fp32 rows "
+        f"({index_a.embeddings.numel() * 4 / 1e9:.2f} GB), (b) {len(index_b)} bf16 rows")
+
+    rng = np.random.default_rng(SEED + 4)
+    batch = np.concatenate([custom, rng.standard_normal((64 - 2 * n, custom.shape[1]))]).astype(np.float32)
+    configs = (
+        ("a", "fp32 1,048,586 rows", index_a, SeekerConfig(), "tilemax_sup"),
+        ("b", "bf16 524,298 rows", index_b, SeekerConfig(), "tilemax"),
+        ("c", "int8 1,048,586 rows", index_a, SeekerConfig(index_quantize="int8"), "tilemax_sup_q8"),
+        # below Q8_HIER_MIN_TILES: the flat route, still through the int8 kernel
+        ("d", "int8 44,446 rows", index_d, SeekerConfig(index_quantize="int8"), "tilemax_sup_q8"),
+    )
+    launches, services = {}, {}
+    for tag, what, index, cfg, kernel in configs:
+        svc = SeekerService(enc, cfg, index=index)
+        services[tag] = svc
+        base = len(index) - 2 * n
+        svc.search_items(description=texts[0])  # set-up: the int8 copy of (c) is built here
+        torch.cuda.synchronize()
+        # -- the run whose launches are counted ----------------------------
+        ops.reset_launch_counts()
+        text_res = [svc.search_items(description=t) for t in texts]
+        image_res = [svc.search_items(image_path=im) for im in images]
+        both_res = [svc.search_items(description=t, image_path=im) for t, im in zip(texts, images)]
+        batch_res = svc._search.search_batch(batch, k=10)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        launches[tag] = counts
+        log(f"phase 4 ({tag}) {what}: launches {json.dumps(counts)}")
+        layers = enc.arch.vision_layers
+        want = {"attention_small": 4 * n * layers, "lora_matmul": 16 * n * layers, "topk_retrieve": 0,
+                "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0}
+        want[kernel] = 3 * n + 1  # one per search, the 64-query batch included
+        if counts != want:
+            raise AssertionError(f"({tag}) launch counts {counts} != expected {want}")
+
+        for i in range(n):
+            t_top, i_top, b_top = text_res[i][0], image_res[i][0], both_res[i][0]
+            if t_top.index != base + i or t_top.score < 0.98:
+                raise AssertionError(f"({tag}) text query {i}: top {t_top.index} {t_top.score}")
+            if i_top.index != base + n + i or i_top.score < 0.98:
+                raise AssertionError(f"({tag}) image query {i}: top {i_top.index} {i_top.score}")
+            if b_top.index not in (base + i, base + n + i):
+                raise AssertionError(f"({tag}) fused query {i}: top {b_top.index}")
+        scores = np.array([[r.score for r in row] for row in batch_res], np.float32)
+        ids = np.array([[r.index for r in row] for row in batch_res], np.int64)
+        q = torch.from_numpy(batch).cuda()
+        if cfg.index_quantize == "int8":
+            vq, sc = svc._search._q8[1], svc._search._q8[2]
+            rs, ri = R.topk_retrieve_q8(q, vq, sc, 10, pallas_pass1=False)
+            tol = 0.0
+        else:
+            rs, ri = R.topk_retrieve_twopass(q, index.embeddings, 10, pallas_pass1=False)
+            tol = 1e-5
+        err = np.abs(scores - rs.cpu().numpy()).max()
+        if not err <= tol:
+            raise AssertionError(f"({tag}) search_batch: kernel vs plain route score err {err}")
+        assert_ids_tie_aware(torch, f"({tag}) search_batch", torch.from_numpy(ids).cuda(), rs, ri.long(), tol)
+        if list(ids[: 2 * n, 0]) != list(range(base, base + 2 * n)):
+            raise AssertionError(f"({tag}) search_batch: custom rows not first {ids[: 2 * n, 0]}")
+        log(f"({tag}) self-retrieval: every text and image query finds its own row first, fused "
+            f"queries one of their two; 64-query search_batch equals the plain route "
+            f"(max score err {err:.3e})")
+        # one Q=1 search (passes 1-3) by the kernel route and by the plain route
+        q1 = q[:1]
+        if cfg.index_quantize == "int8":
+            route = lambda p: R.topk_retrieve_q8(q1, vq, sc, 5, pallas_pass1=p)  # noqa: E731
+        else:
+            route = lambda p: R.topk_retrieve_twopass(q1, index.embeddings, 5, pallas_pass1=p)  # noqa: E731
+        log(f"({tag}) one Q=1 k=5 search: kernel route {cuda_ms(torch, lambda: route(None)):.5f} ms, "
+            f"plain route {cuda_ms(torch, lambda: route(False)):.5f} ms [{card}]")
+        lat = _latency(torch, (
+            ("text", lambda: svc.search_items(description=texts[0])),
+            ("image", lambda: svc.search_items(image_path=images[0])),
+            ("both", lambda: svc.search_items(description=texts[0], image_path=images[0])),
+        ))
+        log(f"({tag}) seeker request latency over {what}, median of 10 (ms): {json.dumps(lat)} [{card}]")
+        if tag in ("a", "c", "d"):
+            profile_device_time(
+                torch, f"({tag}) fused request",
+                lambda: svc.search_items(description=texts[0], image_path=images[0]), lat["both"], card,
+            )
+
+    # -- the finder appends to (c)'s index; the int8 copy follows ---------------
+    svc = services["c"]
+    rows_before = len(index_a)
+    if svc._search._q8[0] != rows_before:
+        raise AssertionError("the int8 copy does not cover the index")
+    quantized = []
+    real_quantize = search_mod.quantize_index_int8
+    search_mod.quantize_index_int8 = lambda x: quantized.append(x.shape[0]) or real_quantize(x)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        store = SqliteStore(os.path.join(tmp, "found_items.sqlite"))
+        # the 2 GB index is not written to disk here (persist_every_insert
+        # off); the CPU tests hold the persisted file to the JAX package's
+        finder = FinderService(enc, FinderConfig(
+            index_path=os.path.join(tmp, "index.npz"),
+            reported_images_dir=os.path.join(tmp, "reported"), persist_every_insert=False,
+        ), store=store, index=index_a)
+        t = time.perf_counter()
+        rep = finder.report_item(paths[0], f"{texts[0]} (lapor ulang)", location="lobi gedung a",
+                                 reporter="smoke")
+        torch.cuda.synchronize()
+        report_ms = (time.perf_counter() - t) * 1e3
+        ops.reset_launch_counts()
+        res = svc.search_items(description=rep.indexed_text)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        items = store.all_items()
+    finally:
+        search_mod.quantize_index_int8 = real_quantize
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rep.index_row != rows_before or res[0].index != rep.index_row or res[0].score < 0.98:
+        raise AssertionError(f"finder: row {rep.index_row}, next search top {res[0].index} {res[0].score}")
+    if svc._search._q8[0] != rows_before + 1 or quantized != [1]:
+        raise AssertionError(f"int8 copy: {svc._search._q8[0]} rows, quantized {quantized}")
+    if counts["tilemax_sup_q8"] != 1 or len(items) != 1 or items[0].description != rep.indexed_text:
+        raise AssertionError(f"finder: launches {counts}, DB rows {items}")
+    log(f"finder: report_item {report_ms:.3f} ms; row {rep.index_row} is the next int8 search's "
+        f"top 1 (score {res[0].score:.6f}); the int8 copy grew to {svc._search._q8[0]} rows by "
+        f"quantizing {quantized[0]} row; DB row {items[0].id}: {items[0].description!r} [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -452,19 +756,25 @@ def main() -> int:
         ("lora_matmul", check_lora, ops_lora),
         ("topk_retrieve", check_topk, ops_topk),
     ):
-        rows, worst = fn(torch, mod, gen)
-        results[name] = (rows, worst)
+        results[name] = fn(torch, mod, gen)
+    results.update(check_pass1(torch, ops_topk, gen))
+    torch.cuda.empty_cache()
+    for name, (rows, _) in results.items():
         for row in rows:
+            lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
             log(f"{name} {row['shape']}: kernel_ms {row['ms']:.5f} plain_ms {row['plain_ms']:.5f} "
-                f"library_ms {row['library_ms']:.5f} bound_ms {row['bound_ms']:.5f} "
+                f"library_ms {lib} bound_ms {row['bound_ms']:.5f} "
                 f"({row['bound_by']}) max_abs_err {row['max_abs_err']:.3e} [{card}]")
 
-    counts, _, _ = main_path(torch, card)
+    counts, (enc, texts, images, paths) = main_path(torch, card)
+    hbm = hbm_path(torch, card, enc, texts, images, paths)
+    for name, tags in (("tilemax_sup", "a"), ("tilemax", "b"), ("tilemax_sup_q8", "cd")):
+        counts[name] = sum(hbm[tag][name] for tag in tags)
 
     table = []
     for name, (rows, worst) in results.items():
         stem, site = KERNELS[name]
-        row = rows[0]  # the seeker's per-request shape
+        row = rows[0]  # the shape of one seeker request on its main path
         table.append({
             "name": name, "route": "cuda",
             "source": f"clip_lora_match_tpu_torch/ops/csrc/{stem}.cu",

@@ -3,7 +3,8 @@
 The port's own copy of the parts of ``clip_lora_match_tpu/core/config.py`` the
 serving path needs: ``ClipArchConfig`` (with the same presets), ``ClipConfig``,
 ``PreprocessConfig``, ``LoraConfig`` and ``load_clip_config``, parsing the same
-``config/clip_config.yaml``. Unknown keys are ignored.
+``config/clip_config.yaml``, and ``DBConfig`` with ``load_db_config`` for
+``config/db_config.yaml``. Unknown keys are ignored.
 """
 
 from __future__ import annotations
@@ -178,3 +179,31 @@ def _arch_from_yaml(model: dict) -> Optional[ClipArchConfig]:
     if unknown:
         warnings.warn(f"ignoring unknown model.arch keys: {unknown}")
     return dataclasses.replace(base, **{k: v for k, v in block.items() if k in known})
+
+
+@dataclass(frozen=True)
+class DBConfig:
+    """Mirrors config/db_config.yaml (a ``postgres:`` block or flat keys)."""
+
+    host: str = "localhost"
+    port: int = 5432
+    user: str = "postgres"
+    password: str = ""
+    dbname: str = "balikkin_db"
+
+    @property
+    def url(self) -> str:
+        return (
+            f"postgresql://{self.user}:{self.password}"
+            f"@{self.host}:{self.port}/{self.dbname}"
+        )
+
+
+def load_db_config(path: Optional[str] = None) -> DBConfig:
+    """Parse config/db_config.yaml; a ``postgres:`` block or flat keys."""
+    if path is None or not os.path.exists(path):
+        return DBConfig()
+    raw = _read_yaml(path)
+    block = raw.get("postgres", raw) or {}
+    names = {f.name for f in dataclasses.fields(DBConfig)}
+    return DBConfig(**{k: v for k, v in block.items() if k in names})

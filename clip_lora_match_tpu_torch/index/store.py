@@ -4,7 +4,9 @@
 Rows live in a device arena (fp32, or bf16 to halve its bytes) that grows
 geometrically, so an append is an O(1) row write. Rows are L2-normalized on
 the way in. Disk format: ``.npz`` (``embeddings``) + ``.json`` sidecar
-(``image_paths``, ``texts``), the JAX package's native format.
+(``image_paths``, ``texts``), the JAX package's native format; the int8
+index's artifact (``save_index_q8`` / ``load_index_q8``) is the JAX package's
+too.
 """
 
 from __future__ import annotations
@@ -154,3 +156,53 @@ class EmbeddingIndex:
             image_paths = meta.get("image_paths", meta.get("image_path", []))
             texts = meta.get("texts", meta.get("text", []))
         return cls(emb, image_paths, texts, device=device, storage_dtype=storage_dtype)
+
+
+# -- quantized-index persistence -------------------------------------------------
+
+
+def save_index_q8(
+    path: str,
+    values,
+    scales,
+    image_paths: Optional[Sequence[str]] = None,
+    texts: Optional[Sequence[str]] = None,
+) -> None:
+    """Persist an int8 index (``ops.retrieval_topk.quantize_index_int8``'s
+    output) as ``.npz`` (``values``, ``scales``) + ``.json`` sidecar, the JAX
+    package's artifact format."""
+    v = values.cpu().numpy() if isinstance(values, torch.Tensor) else np.asarray(values)
+    s = scales.cpu().numpy() if isinstance(scales, torch.Tensor) else np.asarray(scales)
+    s = s.astype(np.float32, copy=False)
+    if v.dtype != np.int8 or v.ndim != 2 or s.shape != (v.shape[0], 1):
+        raise ValueError(
+            f"expected (N, D) int8 values + (N, 1) scales, got "
+            f"{v.dtype}{v.shape} / {s.shape}"
+        )
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, values=v, scales=s)
+    side = path[:-4] if path.endswith(".npz") else path
+    with open(side + ".json", "w") as f:
+        json.dump(
+            {"image_paths": list(image_paths or []), "texts": list(texts or [])},
+            f, ensure_ascii=False,
+        )
+
+
+def load_index_q8(path: str, device: str | torch.device = "cuda"):
+    """Load a ``save_index_q8`` artifact → (values (N, D) int8, scales (N, 1)
+    fp32, both on ``device``, image_paths, texts)."""
+    dev = resolve_device(device)
+    npz = path if path.endswith(".npz") else path + ".npz"
+    with np.load(npz) as data:
+        values = torch.from_numpy(data["values"]).to(dev)
+        scales = torch.from_numpy(data["scales"]).to(dev)
+    side = npz[:-4] + ".json"
+    image_paths: list = []
+    texts: list = []
+    if os.path.exists(side):
+        with open(side) as f:
+            meta = json.load(f)
+        image_paths = meta.get("image_paths", [])
+        texts = meta.get("texts", [])
+    return values, scales, image_paths, texts

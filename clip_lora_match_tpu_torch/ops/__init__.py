@@ -13,6 +13,9 @@ KERNEL_WRAPPERS = {
     "attention_small": attention_small.attention_small,
     "lora_matmul": lora_matmul.lora_matmul,
     "topk_retrieve": retrieval_topk.topk_retrieve,
+    "tilemax": retrieval_topk.tilemax,
+    "tilemax_sup": retrieval_topk.tilemax_sup,
+    "tilemax_sup_q8": retrieval_topk.tilemax_sup_q8,
 }
 
 

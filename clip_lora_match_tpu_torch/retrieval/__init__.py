@@ -1,4 +1,4 @@
-from clip_lora_match_tpu_torch.retrieval.search import SearchIndex, SearchResult
+from clip_lora_match_tpu_torch.retrieval.search import SearchIndex, SearchResult, TextSearchIndex
 from clip_lora_match_tpu_torch.retrieval.similarity import l2_normalize, top_k_similar
 
-__all__ = ["SearchIndex", "SearchResult", "l2_normalize", "top_k_similar"]
+__all__ = ["SearchIndex", "SearchResult", "TextSearchIndex", "l2_normalize", "top_k_similar"]

@@ -2,21 +2,28 @@
 
 Text-only, image-only or both; fusion ``w_text·t + w_img·i`` renormalized
 (0.5/0.5 by default); ``k=0`` returns nothing and ``k<0`` raises. The index
-stays on its device between searches. The YOLO crop stage is not ported yet:
-``use_yolo_crop`` raises.
+stays on its device between searches; an index the service loaded itself is
+reloaded when its file's mtime moves (``watch_index_file``). The search
+front-end lives as long as the index, so the int8 copy that
+``index_quantize="int8"`` serves from is built once and follows appends. The
+YOLO crop stage is not ported yet: ``use_yolo_crop`` raises.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 from PIL import Image
 
+from clip_lora_match_tpu_torch.core.logging import get_logger
 from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
 from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
 from clip_lora_match_tpu_torch.retrieval.search import SearchIndex, SearchResult
+
+log = get_logger("seeker")
 
 
 @dataclass
@@ -26,6 +33,10 @@ class SeekerConfig:
     text_weight: float = 0.5
     image_weight: float = 0.5
     use_yolo_crop: bool = False
+    use_device_crop: bool = False
+    watch_index_file: bool = True
+    # "int8": serve from the quantized index (SearchIndex quantize="int8")
+    index_quantize: str = "none"
 
 
 class SeekerService:
@@ -36,14 +47,35 @@ class SeekerService:
         index: Optional[EmbeddingIndex] = None,
     ):
         self.cfg = config or SeekerConfig()
-        if self.cfg.use_yolo_crop:
+        if self.cfg.use_yolo_crop or self.cfg.use_device_crop:
             raise NotImplementedError("the YOLO crop stage is not ported to PyTorch yet")
         self.encoder = encoder
+        self._shared_index = index is not None
         self.index = (
             index if index is not None
             else EmbeddingIndex.load(self.cfg.index_path, device=encoder.device)
         )
-        self._search = SearchIndex(self.index)
+        self._mtime = self._index_mtime()
+        self._search = SearchIndex(self.index, self.encoder, quantize=self.cfg.index_quantize)
+
+    def _index_mtime(self) -> float:
+        path = self.cfg.index_path
+        npz = path if path.endswith((".npz", ".pt")) else path + ".npz"
+        try:
+            return os.path.getmtime(npz)
+        except OSError:
+            return 0.0
+
+    def _maybe_reload(self) -> None:
+        """Reload an index this service loaded itself when its file changed."""
+        if self._shared_index or not self.cfg.watch_index_file:
+            return
+        m = self._index_mtime()
+        if m > self._mtime:
+            self.index = EmbeddingIndex.load(self.cfg.index_path, device=self.encoder.device)
+            self._mtime = m
+            self._search = SearchIndex(self.index, self.encoder, quantize=self.cfg.index_quantize)
+            log.info("reloaded index (%d rows)", len(self.index))
 
     def _build_query_embedding(
         self, description: Optional[str], image: Optional[str | Image.Image]
@@ -66,6 +98,7 @@ class SeekerService:
         k: Optional[int] = None,
     ) -> list[SearchResult]:
         """Top-k items for a description, an image (path or PIL image), or both."""
+        self._maybe_reload()
         k = self.cfg.top_k if k is None else k
         if k < 0:
             raise ValueError(f"top_k must be >= 0, got {k}")

@@ -4,7 +4,9 @@ Marked ``cuda``: they need an NVIDIA GPU with nvcc and skip elsewhere. Run on
 the card with ``python -m pytest tests/test_torch_cuda.py -q -m cuda``. These
 cover the edges the main-path shapes in chip_smoke.py do not: ragged tiles,
 the largest rank / sequence / k each kernel takes, fully masked rows, shared
-and per-batch additive masks, and the wrappers' refusals.
+and per-batch additive masks, index sizes that are no multiple of a tile or
+a block, rows declared invalid, D = 1024 for the int8 index, and the
+wrappers' refusals.
 """
 
 import pytest
@@ -144,7 +146,11 @@ def test_launch_counters_count_kernel_launches(gen):
     A.attention_small(q, q, q)
     A.attention_small(q.cpu(), q.cpu(), q.cpu())  # CPU: the plain version, no launch
     R.topk_retrieve(_rand(gen, 1, 8), torch.nn.functional.normalize(_rand(gen, 20, 8), dim=1), 2)
-    assert ops.launch_counts() == {"attention_small": 1, "lora_matmul": 0, "topk_retrieve": 1}
+    R.tilemax(_rand(gen, 2, 16), _rand(gen, 40, 16), 16)
+    assert ops.launch_counts() == {
+        "attention_small": 1, "lora_matmul": 0, "topk_retrieve": 1,
+        "tilemax": 1, "tilemax_sup": 0, "tilemax_sup_q8": 0,
+    }
 
 
 def test_a_cpu_encoder_leaves_the_card_encoders_kernels_on(gen):
@@ -169,9 +175,144 @@ def test_a_cpu_encoder_leaves_the_card_encoders_kernels_on(gen):
         enc.attach_lora(init_lora(1, arch, lcfg, device=dev), lcfg.scaling)
         encs[dev] = enc
     pix = np.zeros((1, 64, 64, 3), np.float32)
-    per_pair = {"attention_small": 4, "lora_matmul": 16, "topk_retrieve": 0}  # 2 towers x 2 layers
+    per_pair = {  # 2 towers x 2 layers
+        "attention_small": 4, "lora_matmul": 16, "topk_retrieve": 0,
+        "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
+    }
     ops.reset_launch_counts()
     for dev in ("cuda", "cpu", "cuda"):
         encs[dev].encode_text("tas pink")
         encs[dev].encode_image_batch(pix)
     assert ops.launch_counts() == {k: 2 * v for k, v in per_pair.items()}
+
+
+def _unit_index(gen, N, D, dtype=torch.float32):
+    return torch.nn.functional.normalize(_rand(gen, N, D), dim=1).to(dtype)
+
+
+def _qc(gen, Q, D, dtype):
+    return R._normalize(_rand(gen, Q, D)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,N,D,tile", [(1, 1, 128, 16), (7, 4097, 128, 16), (64, 70_001, 512, 16),
+                                         (3, 1000, 256, 8), (9, 5003, 64, 32)])
+def test_tilemax_kernel(gen, Q, N, D, tile, dtype):
+    qc, index = _qc(gen, Q, D, dtype), _unit_index(gen, N, D, dtype)
+    got = R.tilemax(qc, index, tile)
+    ref = R.tilemax_plain(qc, index, tile)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (Q, -(-N // tile))
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,N,group", [(1, 4096, 16), (7, 8692, 16), (64, 70_003, 8), (2, 33, 16)])
+def test_tilemax_sup_kernel(gen, Q, N, group, dtype):
+    qc, index = _qc(gen, Q, 512, dtype), _unit_index(gen, N, 512, dtype)
+    tmax, gmax = R.tilemax_sup(qc, index, 16, group)
+    rt, rg = R.tilemax_sup_plain(qc, index, 16, group)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(tmax, rt, atol=1e-5, rtol=0)
+    torch.testing.assert_close(gmax, rg, atol=1e-5, rtol=0)
+    # the group maxima are maxima of the kernel's own tile maxima
+    assert torch.equal(gmax, R._group_max(tmax, group))
+
+
+@pytest.mark.parametrize("mxu", ["int8", "bf16"])
+@pytest.mark.parametrize("Q,N,D,group", [(1, 4096, 512, 16), (7, 8692, 1024, 16), (64, 70_009, 512, 8),
+                                          (5, 17, 128, 16)])
+def test_tilemax_sup_q8_kernel_is_bit_equal(gen, Q, N, D, group, mxu):
+    values, scales = R.quantize_index_int8(_unit_index(gen, N, D))
+    qq, _ = R._quantize_queries(_rand(gen, Q, D))
+    tmax, gmax = R.tilemax_sup_q8(qq, values, scales, 16, group, mxu)
+    rt, rg = R.tilemax_sup_q8_plain(qq, values, scales, 16, group)
+    torch.cuda.synchronize()
+    assert torch.equal(tmax, rt) and torch.equal(gmax, rg)
+
+
+def _ids_equal_where_apart(s, i, rs, ri, tol=1e-5):
+    near = torch.zeros_like(rs, dtype=torch.bool)
+    if rs.shape[1] > 1:
+        close = (rs[:, :-1] - rs[:, 1:]) <= tol
+        near[:, :-1] |= close
+        near[:, 1:] |= close
+    assert torch.equal(i[~near], ri[~near])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,N,k,n_valid,group", [(1, 70_001, 1, None, None), (7, 70_001, 64, 69_000, None),
+                                                  (64, 300_007, 10, None, 16), (3, 40_000, 5, 39_990, 8)])
+def test_twopass_kernel_route_matches_plain_route(gen, Q, N, k, n_valid, group, dtype):
+    index = _unit_index(gen, N, 512, dtype)
+    queries = _rand(gen, Q, 512)
+    s, i = R.topk_retrieve_twopass(queries, index, k, n_valid=n_valid, group=group)
+    rs, ri = R.topk_retrieve_twopass(queries, index, k, n_valid=n_valid, pallas_pass1=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
+    _ids_equal_where_apart(s, i, rs, ri)
+    if n_valid is not None:
+        assert i.max().item() < n_valid
+
+
+@pytest.mark.parametrize("Q,N,D,k,n_valid", [(1, 300_001, 512, 1, None), (64, 270_000, 512, 64, 269_000),
+                                              (7, 70_000, 1024, 10, None)])
+def test_q8_kernel_route_equals_plain_route(gen, Q, N, D, k, n_valid):
+    values, scales = R.quantize_index_int8(_unit_index(gen, N, D))
+    queries = _rand(gen, Q, D)
+    s, i = R.topk_retrieve_q8(queries, values, scales, k, n_valid=n_valid, group=16)
+    rs, ri = R.topk_retrieve_q8(queries, values, scales, k, n_valid=n_valid, pallas_pass1=False)
+    torch.cuda.synchronize()
+    assert torch.equal(s, rs)
+    _ids_equal_where_apart(s, i, rs, ri, tol=0.0)
+
+
+@pytest.mark.parametrize("D,tile,dtype", [(64, 16, torch.float32), (320, 16, torch.bfloat16),
+                                          (512, 32, torch.float32), (64, 32, torch.bfloat16)])
+def test_twopass_takes_the_kernel_at_any_width_and_tile(gen, D, tile, dtype):
+    # the JAX package's D % 128 and tile <= 16 conditions are Mosaic's: on
+    # CUDA the default route is the kernel whatever the width or tile
+    from clip_lora_match_tpu_torch import ops
+
+    index = _unit_index(gen, 70_001, D, dtype)
+    queries = _rand(gen, 3, D)
+    ops.reset_launch_counts()
+    s, i = R.topk_retrieve_twopass(queries, index, 10, tile=tile)
+    assert ops.launch_counts()["tilemax"] == 1
+    rs, ri = R.topk_retrieve_twopass(queries, index, 10, tile=tile, pallas_pass1=False)
+    assert ops.launch_counts()["tilemax"] == 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
+    _ids_equal_where_apart(s, i, rs, ri)
+
+
+@pytest.mark.parametrize("Q,N,D,tile", [(1, 44_446, 512, 16), (64, 100_003, 512, 16),
+                                         (3, 70_000, 64, 32)])
+def test_q8_flat_route_takes_the_kernel(gen, Q, N, D, tile):
+    # below the hierarchical gate the int8 index still reads its int8 bytes
+    # through tilemax_sup_q8, never through an fp32 copy of the index
+    from clip_lora_match_tpu_torch import ops
+
+    values, scales = R.quantize_index_int8(_unit_index(gen, N, D))
+    queries = _rand(gen, Q, D)
+    ops.reset_launch_counts()
+    s, i = R.topk_retrieve_q8(queries, values, scales, 10, tile=tile)
+    assert ops.launch_counts()["tilemax_sup_q8"] == 1
+    rs, ri = R.topk_retrieve_q8(queries, values, scales, 10, tile=tile, pallas_pass1=False)
+    assert ops.launch_counts()["tilemax_sup_q8"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(s, rs)
+    _ids_equal_where_apart(s, i, rs, ri, tol=0.0)
+
+
+def test_pass1_wrappers_refuse_what_the_kernel_does_not_take(gen):
+    index = _unit_index(gen, 100, 50)  # 200-byte rows: no 16-byte vectors
+    with pytest.raises(ValueError, match="16-byte"):
+        R.tilemax(_qc(gen, 1, 50, torch.float32), index)
+    with pytest.raises(TypeError):
+        R.tilemax(_qc(gen, 1, 64, torch.float32), _unit_index(gen, 100, 64, torch.bfloat16))
+    with pytest.raises(ValueError, match="16-byte"):
+        R.tilemax(_qc(gen, 1, 32, torch.float32), _unit_index(gen, 100, 64)[:, :32])
+    # the two-pass default route raises too: it never gives way to the plain route
+    with pytest.raises(ValueError, match="16-byte"):
+        R.topk_retrieve_twopass(_rand(gen, 1, 50), _unit_index(gen, 70_000, 50), 5)

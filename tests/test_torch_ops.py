@@ -146,11 +146,16 @@ def test_topk_retrieve_auto_bands(monkeypatch):
     )
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-6)
+    # the two-pass band on every device: a CUDA index goes the same way
+    monkeypatch.setattr(
+        t_rt, "topk_retrieve_twopass", lambda q, x, k: calls.append("two") or (None, None)
+    )
     fake_cuda = types.SimpleNamespace(
         shape=(t_rt.TWOPASS_MIN_N, 512), device=torch.device("cuda"), dtype=torch.float32
     )
-    with pytest.raises(NotImplementedError, match="two-pass"):
-        t_rt.topk_retrieve_auto(q, fake_cuda, 5)
+    t_rt.topk_retrieve_auto(q, fake_cuda, 5)
+    t_rt.topk_retrieve_auto(q, torch.zeros(t_rt.TWOPASS_MIN_N, 16, dtype=torch.bfloat16), 5)
+    assert calls == ["stream", "stream", "two", "two"]
 
 
 def test_cpu_tensors_launch_nothing():
@@ -159,6 +164,11 @@ def test_cpu_tensors_launch_nothing():
     t_attn(q, q, q)
     t_lora(torch.randn(4, 8), torch.randn(8, 8), torch.randn(8, 2), torch.randn(2, 8))
     t_rt.topk_retrieve(torch.randn(1, 8), torch.randn(10, 8), 2)
+    t_rt.tilemax(torch.randn(1, 16), torch.randn(40, 16), 16)
+    t_rt.tilemax_sup(torch.randn(1, 16), torch.randn(40, 16), 16, 2)
+    qq = torch.ones(1, 16, dtype=torch.int8)
+    t_rt.tilemax_sup_q8(qq, torch.ones(40, 16, dtype=torch.int8), torch.ones(40, 1), 16, 2)
     assert t_ops.launch_counts() == {
         "attention_small": 0, "lora_matmul": 0, "topk_retrieve": 0,
+        "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
     }
