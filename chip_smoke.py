@@ -24,7 +24,16 @@ Phases (any failure raises and exits non-zero):
    44,446-row index served int8 (tilemax_sup_q8, flat route); a 64-query
    search_batch against the plain route; request latency; then a
    FinderService.report_item into (c)'s index with a SqliteStore, found by
-   the next search, the int8 copy extended by one row.
+   the next search, the int8 copy extended by one row;
+5. ViT-L/14-336 (ClipConfig(model_name="openai/clip-vit-large-patch14-336"),
+   seeded full-width weights, r=8 alpha=16 LoRA) under flash_attention=True
+   and fused_mlp=True, served through build_services (QueuedEncoder,
+   SqliteStore, a 44,446-row D=768 index saved to a temp .npz): a counted
+   run of text, image and fused requests with exact launch counts,
+   self-retrieval, 8 concurrent searches coalesced by the queue, request
+   latency, a 32-image batch against the plain fp32 path, device time by
+   kernel, the image tower with flash and the fused MLP each on and off, and
+   a report_item through the graph's finder found by the next search.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -65,7 +74,11 @@ KERNELS = {
     "tilemax": ("retrieval_tilemax", "clip_lora_match_tpu/ops/retrieval_topk.py:526"),
     "tilemax_sup": ("retrieval_tilemax", "clip_lora_match_tpu/ops/retrieval_topk.py:442"),
     "tilemax_sup_q8": ("retrieval_tilemax", "clip_lora_match_tpu/ops/retrieval_topk.py:830"),
+    "mlp_fused": ("mlp_fused", "clip_lora_match_tpu/ops/mlp_fused.py:96"),
+    "flash_attention": ("flash_attention", "clip_lora_match_tpu/ops/flash_attention.py:110"),
 }
+OFF_BY_DEFAULT = {"mlp_fused": 0, "flash_attention": 0}  # off by default: phases 3-4 never launch them
+L14_INDEX_ROWS = 44_436  # phase 5: seeded unit rows at D=768; +5 texts +5 images
 
 
 def log(*parts) -> None:
@@ -223,6 +236,83 @@ def check_topk(torch, ops_topk, gen):
     return rows, worst
 
 
+def check_flash(torch, ops_flash, gen):
+    """flash_attention against its plain version; the first row is the
+    L/14-336 image tower's shape (fp32 residual, maskless)."""
+    rows = []
+    worst = 0.0
+    f32, bf16 = torch.float32, torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = [  # (B, S, H, causal mask, dtype)
+        (1, 577, 16, False, f32), (1, 577, 16, False, bf16), (32, 577, 16, False, f32),
+        (1, 197, 12, False, f32), (1, 257, 16, False, f32), (1, 77, 12, True, bf16),
+    ]
+    for B, S, H, causal, dtype in shapes:
+        kind = "fp32" if dtype == f32 else "bf16"
+        q, k, v = (torch.randn(B, S, H, 64, device="cuda", generator=gen).to(dtype) for _ in range(3))
+        mask = torch.triu(torch.full((S, S), torch.finfo(torch.float32).min, device="cuda"), 1)[None, None] if causal else None
+        got = ops_flash.flash_attention(q, k, v, mask=mask)
+        ref = ops_flash.flash_attention_plain(q, k, v, mask=mask)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        # fp32: summation order only; bf16: one bf16 step of the output
+        tol = 2e-2 if dtype == bf16 else 5e-5
+        if not err <= tol:
+            raise AssertionError(f"flash_attention B={B} S={S} H={H} causal={causal} {kind}: max err {err}")
+        worst = max(worst, err)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_mask = None if mask is None else mask.to(dtype)
+        # the additive mask is applied to every (query, key) pair: count them all
+        nbytes = 4 * B * S * H * 64 * q.element_size() + (S * S * 4 if causal else 0)
+        b_ms, b_by = bound_ms(nbytes, 4 * B * H * S * S * 64, kind)
+        rows.append(dict(
+            shape=f"B={B} S={S} H={H} hd=64 {'causal mask' if causal else 'maskless'} {kind}",
+            ms=cuda_ms(torch, lambda: ops_flash.flash_attention(q, k, v, mask=mask)),
+            plain_ms=cuda_ms(torch, lambda: ops_flash.flash_attention_plain(q, k, v, mask=mask)),
+            library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lib_mask)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        ))
+    return rows, worst
+
+
+def check_mlp_fused(torch, ops_mlp, gen):
+    """mlp_fused against its plain version; the first row is one L/14-336
+    image's vision MLP, then the L/14 text tower's and a 32-image batch's."""
+    rows = []
+    worst = 0.0
+    bf = torch.bfloat16
+    for M, K, H in ((577, 1024, 4096), (64, 768, 3072), (32 * 577, 1024, 4096)):
+        N = K
+        x = torch.randn(M, K, device="cuda", generator=gen).to(bf)
+        w1 = (torch.randn(K, H, device="cuda", generator=gen) * K ** -0.5).to(bf)
+        b1 = torch.randn(H, device="cuda", generator=gen) * 0.1
+        w2 = (torch.randn(H, N, device="cuda", generator=gen) * H ** -0.5).to(bf)
+        b2 = torch.randn(N, device="cuda", generator=gen) * 0.1
+        got = ops_mlp.mlp_fused(x, w1, b1, w2, b2)
+        ref = ops_mlp.mlp_fused_plain(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        scale = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not err <= 1e-2 * scale:
+            raise AssertionError(f"mlp_fused M={M} K={K} H={H}: max err {err} vs scale {scale}")
+        worst = max(worst, err)
+        b1b, b2b = b1.to(bf), b2.to(bf)
+
+        def library():
+            h = torch.addmm(b1b, x, w1)
+            return torch.addmm(b2b, h * torch.sigmoid(1.702 * h), w2)
+        nbytes = (M * K + K * H + H * N + M * N) * 2 + (H + N) * 4
+        b_ms, b_by = bound_ms(nbytes, 2 * M * H * (K + N), "bf16")
+        rows.append(dict(
+            shape=f"M={M} K=N={K} H={H} bf16",
+            ms=cuda_ms(torch, lambda: ops_mlp.mlp_fused(x, w1, b1, w2, b2)),
+            plain_ms=cuda_ms(torch, lambda: ops_mlp.mlp_fused_plain(x, w1, b1, w2, b2)),
+            library_ms=cuda_ms(torch, library),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        ))
+    return rows, worst
+
+
 def assert_ids_tie_aware(torch, what, i, rs, ri, tol):
     """Ids equal wherever the plain scores are more than ``tol`` from a
     neighbour: a swap is allowed only inside a tie."""
@@ -345,9 +435,9 @@ def _host_ms(fn, reps: int = 10) -> float:
     return statistics.median(samples)
 
 
-def profile_device_time(torch, name: str, fn, wall_ms: float, card: str) -> None:
-    """Device time of one call by kernel (torch.profiler), beside the call's
-    unprofiled wall time: the idle share is 1 - device / wall."""
+def device_rows(torch, fn) -> list:
+    """(device ms, count, name) of every device activity (kernels and copies)
+    in one call of ``fn`` after a warm-up call, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -357,12 +447,18 @@ def profile_device_time(torch, name: str, fn, wall_ms: float, card: str) -> None
         fn()
         torch.cuda.synchronize()
     per: dict[str, list] = {}
-    for e in prof.events():  # device-side activities only: kernels and copies
+    for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             row = per.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
-    rows = [(ms, count, key) for key, (ms, count) in per.items()]
+    return [(ms, count, key) for key, (ms, count) in per.items()]
+
+
+def profile_device_time(torch, name: str, fn, wall_ms: float, card: str) -> None:
+    """Device time of one call by kernel (torch.profiler), beside the call's
+    unprofiled wall time: the idle share is 1 - device / wall."""
+    rows = device_rows(torch, fn)
     if not rows:
         log(f"{name}: device time not measured (the profiler saw no device activity)")
         return
@@ -442,6 +538,7 @@ def main_path(torch, card: str):
         "lora_matmul": 4 * 4 * n * layers,      # q/k/v/out per layer per tower
         "topk_retrieve": 3 * n,                 # one search per request
         "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,  # N < TWOPASS_MIN_N
+        **OFF_BY_DEFAULT,
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -620,7 +717,7 @@ def hbm_path(torch, card, enc, texts, images, paths):
         log(f"phase 4 ({tag}) {what}: launches {json.dumps(counts)}")
         layers = enc.arch.vision_layers
         want = {"attention_small": 4 * n * layers, "lora_matmul": 16 * n * layers, "topk_retrieve": 0,
-                "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0}
+                "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0, **OFF_BY_DEFAULT}
         want[kernel] = 3 * n + 1  # one per search, the 64-query batch included
         if counts != want:
             raise AssertionError(f"({tag}) launch counts {counts} != expected {want}")
@@ -714,6 +811,202 @@ def hbm_path(torch, card, enc, texts, images, paths):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: ViT-L/14-336 through the config entry point and the service graph
+# ---------------------------------------------------------------------------
+
+
+def _cosines(got, ref):
+    return (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+
+
+def l14_path(torch, card, texts, images, paths):
+    """Phase 5. Returns the launches of its counted run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.api import build_services
+    from clip_lora_match_tpu_torch.core.config import ClipConfig, LoraConfig
+    from clip_lora_match_tpu_torch.db.store import SqliteStore
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+    from clip_lora_match_tpu_torch.lora.adapter import init_lora
+    from clip_lora_match_tpu_torch.models.clip import init_params
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+
+    cfg = ClipConfig(model_name="openai/clip-vit-large-patch14-336")
+    arch = cfg.arch
+    if (arch.image_size, arch.vision_seq_len, arch.vision_width, arch.projection_dim) != (336, 577, 1024, 768):
+        raise AssertionError(f"L/14-336 preset: {arch}")
+    lcfg = LoraConfig()
+    t0 = time.perf_counter()
+    params = init_params(SEED, arch, device="cuda")
+    lora = init_lora(SEED + 1, arch, lcfg, device="cuda")
+    rng = np.random.default_rng(SEED + 5)
+    for tower in lora.values():
+        for proj in tower["blocks"]["attn"].values():
+            proj["b"] = torch.from_numpy(
+                rng.normal(0.0, 0.02, tuple(proj["b"].shape)).astype(np.float32)
+            ).cuda()
+    enc = ClipEncoder(params, arch=arch, config=cfg, device="cuda")
+    enc.attach_lora(lora, lcfg.scaling)
+    n = len(texts)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_l14_")
+    graph = None
+    try:
+        with kernel_flags(flash_attention=True, fused_mlp=True):
+            noise = rng.standard_normal((L14_INDEX_ROWS, arch.projection_dim), dtype=np.float32)
+            index = EmbeddingIndex(noise, [""] * L14_INDEX_ROWS, [""] * L14_INDEX_ROWS,
+                                   device="cuda", capacity=L14_INDEX_ROWS + 16)
+            text_rows = [index.append(enc.encode_text(t), paths[i], texts[i]) for i, t in enumerate(texts)]
+            image_rows = [index.append(enc.encode_image(im), paths[i], texts[i]) for i, im in enumerate(images)]
+            index_path = os.path.join(tmp, "index", "items_index.npz")
+            os.makedirs(os.path.dirname(index_path))
+            index.save(index_path)
+            del index
+            store = SqliteStore(os.path.join(tmp, "found_items.sqlite"))
+            graph = build_services(enc, store=store, data_dir=tmp, index_path=index_path)
+            seeker = graph.seeker
+            if type(seeker.encoder).__name__ != "QueuedEncoder" or seeker.index is not graph.finder.index:
+                raise AssertionError("the service graph does not share one queued encoder and one index")
+            if len(seeker.index) != L14_INDEX_ROWS + 2 * n:
+                raise AssertionError(f"index has {len(seeker.index)} rows")
+            torch.cuda.synchronize()
+            log(f"phase 5 set-up (L/14-336 weights, LoRA, index, service graph): "
+                f"{time.perf_counter() - t0:.3f} s; index rows {len(seeker.index)} at D={arch.projection_dim}")
+
+            # -- the run whose launches are counted -----------------------------
+            ops.reset_launch_counts()
+            text_res = [seeker.search_items(description=t) for t in texts]
+            image_res = [seeker.search_items(image_path=im) for im in images]
+            both_res = [seeker.search_items(description=t, image_path=im) for t, im in zip(texts, images)]
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            log("phase 5 launches:", json.dumps(counts))
+            vl, tl = arch.vision_layers, arch.text_layers
+            want = {
+                "attention_small": 2 * n * tl,              # text tower: text + fused requests
+                "lora_matmul": 4 * 2 * n * (vl + tl),       # q/k/v/out per layer per tower pass
+                "topk_retrieve": 3 * n,
+                "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
+                "mlp_fused": 2 * n * (vl + tl),              # every MLP of both towers
+                "flash_attention": 2 * n * vl,               # image tower: image + fused requests
+            }
+            if counts != want:
+                raise AssertionError(f"phase 5 launch counts {counts} != expected {want}")
+            for i in range(n):
+                t0r, i0r = text_res[i][0], image_res[i][0]
+                if t0r.index != text_rows[i] or t0r.score < 0.99:
+                    raise AssertionError(f"L/14 text query {i}: top {t0r.index} {t0r.score}")
+                if i0r.index != image_rows[i] or i0r.score < 0.99:
+                    raise AssertionError(f"L/14 image query {i}: top {i0r.index} {i0r.score}")
+                top5 = {r.index for r in both_res[i]}
+                if not {text_rows[i], image_rows[i]} <= top5 or len(both_res[i]) != 5:
+                    raise AssertionError(f"L/14 fused query {i}: top-5 {sorted(top5)}")
+            log("phase 5 self-retrieval: text and image queries return their own rows first "
+                f"(min score {min(min(r[0].score for r in text_res), min(r[0].score for r in image_res)):.6f}); "
+                "fused queries hold both rows in their top 5")
+
+            # -- concurrent searches coalesce in the queue ----------------------
+            many = list(texts) + [f"{texts[i]} warna lain" for i in range(8 - n)]
+            sequential = [seeker.search_items(description=t) for t in many]
+            queue = seeker.encoder.queue
+            linger, queue.linger = queue.linger, 0.5
+            try:
+                ops.reset_launch_counts()
+                with ThreadPoolExecutor(len(many)) as pool:
+                    futures = [pool.submit(seeker.search_items, description=t) for t in many]
+                    concurrent = [f.result(timeout=300) for f in futures]
+                torch.cuda.synchronize()
+            finally:
+                queue.linger = linger
+            passes = ops.launch_counts()["attention_small"] // tl
+            worst = 0.0
+            for t, a, b in zip(many, sequential, concurrent):
+                if [r.index for r in a] != [r.index for r in b]:
+                    raise AssertionError(f"concurrent search {t!r}: ids {[r.index for r in b]} "
+                                         f"!= sequential {[r.index for r in a]}")
+                worst = max(worst, max(abs(x.score - y.score) for x, y in zip(a, b)))
+            # a batch of 8 rounds the final projection in another cuBLAS kernel
+            # than a batch of 1: scores agree to a bf16 step
+            if not (passes < len(many) and worst <= 5e-3):
+                raise AssertionError(f"concurrent searches: {passes} text tower passes, score diff {worst}")
+            log(f"phase 5 batch queue: {len(many)} concurrent text searches in {passes} text tower "
+                f"pass(es), the sequential ids, max score diff {worst:.3e}")
+
+            # -- request latency --------------------------------------------------
+            lat = _latency(torch, (
+                ("text", lambda: seeker.search_items(description=texts[0])),
+                ("image", lambda: seeker.search_items(image_path=images[0])),
+                ("both", lambda: seeker.search_items(description=texts[0], image_path=images[0])),
+            ))
+            log(f"phase 5 L/14-336 seeker request latency, median of 10 (ms): {json.dumps(lat)} [{card}]")
+            profile_device_time(
+                torch, "phase 5 fused request",
+                lambda: seeker.search_items(description=texts[0], image_path=images[0]), lat["both"], card,
+            )
+
+            # -- 32-image batch: kernel path (bf16) against the plain path (fp32) --
+            pix = np.clip(rng.normal(0.0, 1.0, (32, arch.image_size, arch.image_size, 3)), -2, 2)
+            pix = pix.astype(np.float32)
+            pix[:n] = enc.preprocessor.preprocess_images(images)
+            img_k = enc.encode_image_batch(pix)
+            batch_ms = _host_ms(lambda: enc.encode_image_batch(pix), reps=5)
+            log(f"phase 5 32-image batch: {batch_ms:.3f} ms, {32e3 / batch_ms:.1f} images/s "
+                f"(host preprocessing excluded) [{card}]")
+            profile_device_time(torch, "phase 5 32-image batch", lambda: enc.encode_image_batch(pix),
+                                batch_ms, card)
+            plain = ClipEncoder(
+                params, arch=arch, config=ClipConfig(arch=arch, use_pallas_kernels=False),
+                compute_dtype="float32", device="cuda",
+            )
+            plain.attach_lora(lora, lcfg.scaling)
+            ops.reset_launch_counts()
+            img_p = plain.encode_image_batch(pix)
+            if any(ops.launch_counts().values()):
+                raise AssertionError(f"plain encoder launched kernels: {ops.launch_counts()}")
+            del plain
+            if img_k.shape != img_p.shape or not np.isfinite(img_k).all():
+                raise AssertionError(f"32-image batch: shape {img_k.shape} or non-finite values")
+            cos = _cosines(img_k, img_p)
+            if not cos.min() >= 0.99:
+                raise AssertionError(f"32-image batch: min cosine {cos.min()} < 0.99")
+            log(f"phase 5 32-image batch kernel path (bf16, flash + fused MLP) vs plain path (fp32): "
+                f"min cosine {cos.min():.6f}")
+
+            # -- the image tower with flash and the fused MLP on and off ----------
+            table = []
+            for B in (1, 32):
+                for flash in (True, False):
+                    for fused in (True, False):
+                        with kernel_flags(flash_attention=flash, fused_mlp=fused):
+                            rows = device_rows(torch, lambda: enc.encode_image_batch(pix[:B]))
+                            wall = _host_ms(lambda: enc.encode_image_batch(pix[:B]), reps=5)
+                        table.append(dict(B=B, flash=flash, fused_mlp=fused,
+                                          device_ms=sum(r[0] for r in rows), wall_ms=wall))
+            for row in table:
+                log(f"phase 5 image tower B={row['B']} flash={row['flash']} fused_mlp={row['fused_mlp']}: "
+                    f"device {row['device_ms']:.4f} ms, wall {row['wall_ms']:.4f} ms [{card}]")
+
+            # -- the finder through the graph --------------------------------------
+            rows_before = len(graph.finder.index)
+            rep = graph.finder.report_item(paths[0], f"{texts[0]} (lapor ulang)", location="kantin",
+                                           reporter="smoke")
+            res = seeker.search_items(description=rep.indexed_text)
+            items = store.all_items()
+            if rep.index_row != rows_before or res[0].index != rep.index_row or res[0].score < 0.99:
+                raise AssertionError(f"L/14 finder: row {rep.index_row}, next search top {res[0].index}")
+            if len(items) != 1 or items[0].description != rep.indexed_text or not os.path.exists(index_path):
+                raise AssertionError(f"L/14 finder: DB rows {items}")
+            log(f"phase 5 finder: row {rep.index_row} is the next search's top 1 (score {res[0].score:.6f}); "
+                f"DB row {items[0].id}: {items[0].description!r}")
+    finally:
+        if graph is not None:
+            graph.seeker.encoder.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -730,7 +1023,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from clip_lora_match_tpu_torch.ops import attention_small as ops_attn
+    from clip_lora_match_tpu_torch.ops import flash_attention as ops_flash
     from clip_lora_match_tpu_torch.ops import lora_matmul as ops_lora
+    from clip_lora_match_tpu_torch.ops import mlp_fused as ops_mlp
     from clip_lora_match_tpu_torch.ops import retrieval_topk as ops_topk
 
     t_start = time.perf_counter()
@@ -758,6 +1053,8 @@ def main() -> int:
     ):
         results[name] = fn(torch, mod, gen)
     results.update(check_pass1(torch, ops_topk, gen))
+    results["mlp_fused"] = check_mlp_fused(torch, ops_mlp, gen)
+    results["flash_attention"] = check_flash(torch, ops_flash, gen)
     torch.cuda.empty_cache()
     for name, (rows, _) in results.items():
         for row in rows:
@@ -770,11 +1067,15 @@ def main() -> int:
     hbm = hbm_path(torch, card, enc, texts, images, paths)
     for name, tags in (("tilemax_sup", "a"), ("tilemax", "b"), ("tilemax_sup_q8", "cd")):
         counts[name] = sum(hbm[tag][name] for tag in tags)
+    torch.cuda.empty_cache()
+    l14 = l14_path(torch, card, texts, images, paths)
+    for name in OFF_BY_DEFAULT:
+        counts[name] = l14[name]
 
     table = []
     for name, (rows, worst) in results.items():
         stem, site = KERNELS[name]
-        row = rows[0]  # the shape of one seeker request on its main path
+        row = rows[0]  # the shape of one request on the kernel's main path
         table.append({
             "name": name, "route": "cuda",
             "source": f"clip_lora_match_tpu_torch/ops/csrc/{stem}.cu",

@@ -15,16 +15,18 @@ adapter change, so a request never re-reads the fp32 tree to cast it.
 from __future__ import annotations
 
 import contextlib
+import os
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from PIL import Image
 
-from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig
+from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig, load_clip_config
 from clip_lora_match_tpu_torch.core.device import resolve_device
 from clip_lora_match_tpu_torch.models import clip as clip_model
-from clip_lora_match_tpu_torch.models.io import to_device
+from clip_lora_match_tpu_torch.models.io import load_params, to_device
 from clip_lora_match_tpu_torch.nn.layers import kernel_flags, unstack_blocks
 from clip_lora_match_tpu_torch.preprocess.pipeline import ClipPreprocessor
 
@@ -88,6 +90,42 @@ class ClipEncoder:
         self.eot_id = self.preprocessor.tokenizer.eot_id
         self._serving = None
 
+    # -- construction -----------------------------------------------------------
+
+    @classmethod
+    def from_config(
+        cls,
+        config_path: Optional[str] = None,
+        weights_path: Optional[str] = None,
+        lora_path: Optional[str] = None,
+        seed: int = 0,
+        device: str | torch.device = "cuda",
+    ) -> "ClipEncoder":
+        """Build from the YAML config (``model.name`` picks the preset, a
+        ``model.arch:`` block overrides it). Loads the ``.npz`` weights when
+        given and found, else initializes from ``seed`` with a warning; a
+        missing LoRA directory warns and keeps the base weights."""
+        cfg = load_clip_config(config_path)
+        arch = cfg.arch
+        dev = resolve_device(device)
+        if weights_path and os.path.exists(weights_path):
+            params = load_params(weights_path, device=dev)
+        else:
+            if weights_path:
+                warnings.warn(f"weights not found at {weights_path}; random init")
+            else:
+                warnings.warn("no weights_path given; using random initialization")
+            params = clip_model.init_params(seed, arch, device=dev)
+        enc = cls(params, arch=arch, config=cfg, device=dev)
+        if lora_path:
+            from clip_lora_match_tpu_torch.lora.adapter import load_lora
+
+            if os.path.exists(lora_path):
+                enc.attach_lora(*load_lora(lora_path, device=dev))
+            else:
+                warnings.warn(f"LoRA weights not found at {lora_path}; using base model")
+        return enc
+
     # -- LoRA -----------------------------------------------------------------
 
     def attach_lora(self, lora_params, scaling: float) -> None:
@@ -105,13 +143,15 @@ class ClipEncoder:
             self._serving = None
 
     def _dispatch(self):
-        """The kernel switches are left at their per-tensor "auto" default
-        (kernels on CUDA tensors, the exact plain paths on the CPU); a config
-        with ``use_pallas_kernels: false`` runs this encoder's calls plain
-        (the switch is process-wide while such a call runs)."""
+        """The kernel switches are left as they are (by default kernels on
+        CUDA tensors, the exact plain paths on the CPU); a config with
+        ``use_pallas_kernels: false`` runs this encoder's calls plain, every
+        kernel off (the switch is process-wide while such a call runs)."""
         if self.cfg.use_pallas_kernels:
             return contextlib.nullcontext()
-        return kernel_flags(fused_lora=False, small_attention=False)
+        return kernel_flags(
+            fused_lora=False, small_attention=False, flash_attention=False, fused_mlp=False
+        )
 
     def _serving_state(self):
         if self._serving is None:
@@ -196,3 +236,15 @@ class ClipEncoder:
         enc = self.preprocessor.preprocess_text(text)
         out = self.encode_text_batch(enc["input_ids"], enc["attention_mask"], normalize)
         return out[0] if single else out
+
+
+def load_clip_model(
+    config_path: Optional[str] = None,
+    lora_path: Optional[str] = None,
+    weights_path: Optional[str] = None,
+    device: str | torch.device = "cuda",
+) -> ClipEncoder:
+    """The JAX package's ``load_clip_model``: ``ClipEncoder.from_config``."""
+    return ClipEncoder.from_config(
+        config_path=config_path, weights_path=weights_path, lora_path=lora_path, device=device
+    )

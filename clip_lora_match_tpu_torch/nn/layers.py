@@ -9,14 +9,18 @@ bias/LoRA adds are bf16. LoRA adapters are ``{"a": (in, r), "b": (r, out)}``.
 Kernel dispatch follows the same switches as the JAX package:
 ``fused_lora`` sends each adapted projection through ``ops.lora_matmul``;
 ``small_attention`` sends S <= ``SMALL_ATTN_MAX_SEQ`` (or causal
-S <= ``SMALL_ATTN_CAUSAL_MAX_SEQ``) through ``ops.attention_small``.
-Each switch is ``"auto"`` (the default: the kernel branch for tensors on the
-card, the exact plain path for CPU tensors), ``True`` (the kernel branch for
-every tensor; on the CPU the wrapper runs the kernel's plain version) or
-``False`` (the plain path everywhere). The choice is made per call from the
-tensor's device, so encoders on different devices never switch each other.
-``flash_attention`` and ``fused_mlp`` are kept as names only: their kernels are
-not ported and turning them on raises.
+S <= ``SMALL_ATTN_CAUSAL_MAX_SEQ``) through ``ops.attention_small``;
+``flash_attention`` sends the other sequences through
+``ops.flash_attention``; ``fused_mlp`` sends each MLP without an fc1/fc2
+adapter through ``ops.mlp_fused``.
+Each switch is ``"auto"`` (the kernel branch for tensors on the card, the
+exact plain path for CPU tensors; for ``flash_attention`` also only from
+``FLASH_MIN_SEQ`` on), ``True`` (the kernel branch for every tensor; on the
+CPU the wrapper runs the kernel's plain version) or ``False`` (the plain path
+everywhere). The choice is made per call from the tensor's device, so
+encoders on different devices never switch each other. ``fused_lora`` and
+``small_attention`` default to ``"auto"``; ``flash_attention`` and
+``fused_mlp`` default to ``False``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,20 +43,22 @@ _KERNEL_FLAGS = {
 SMALL_ATTN_MAX_SEQ = 64
 SMALL_ATTN_CAUSAL_MAX_SEQ = 80
 
+# The JAX package's "auto" gate for flash attention, a TPU measurement that
+# never picks it (flash lost to XLA's attention at every CLIP geometry there).
+# Kept as the sentinel until the H100's own in-tower table is read; an
+# explicit flash_attention=True forces the kernel.
+FLASH_MIN_SEQ = 1 << 30
+
 
 def set_kernel_flags(
     fused_lora: bool | str | None = None,
     flash_attention: bool | str | None = None,
     small_attention: bool | str | None = None,
-    fused_mlp: bool | None = None,
+    fused_mlp: bool | str | None = None,
 ) -> dict:
     """Set the process-wide kernel dispatch; returns the previous flags."""
     prev = dict(_KERNEL_FLAGS)
-    if flash_attention not in (None, False, "auto") or fused_mlp:
-        raise NotImplementedError(
-            "flash_attention and fused_mlp kernels are not ported to CUDA yet"
-        )
-    for val in (fused_lora, small_attention):
+    for val in (fused_lora, flash_attention, small_attention, fused_mlp):
         if val not in (None, True, False, "auto"):
             raise ValueError(f"kernel flag must be True, False or 'auto', got {val!r}")
     for name, val in (
@@ -85,6 +91,15 @@ def kernel_flags(**flags):
 def _kernel_on(name: str, x: torch.Tensor) -> bool:
     flag = _KERNEL_FLAGS[name]
     return flag is True or (flag == "auto" and x.is_cuda)
+
+
+def _use_flash(x: torch.Tensor) -> bool:
+    """``True`` forces flash; ``"auto"`` takes it for CUDA tensors from
+    ``FLASH_MIN_SEQ`` on; ``False`` never."""
+    flag = _KERNEL_FLAGS["flash_attention"]
+    if flag == "auto":
+        return x.is_cuda and x.shape[1] >= FLASH_MIN_SEQ
+    return bool(flag)
 
 
 def uses_small_attention(x: torch.Tensor, causal: bool = False) -> bool:
@@ -221,6 +236,10 @@ def attention(
             )
         else:
             ctx = attention_small(qh, kh, vh, mask=mask, scale=hd ** -0.5)
+    elif _use_flash(x):
+        from clip_lora_match_tpu_torch.ops.flash_attention import flash_attention
+
+        ctx = flash_attention(qh, kh, vh, mask=mask, scale=hd ** -0.5)
     else:
         scores = torch.einsum("bqhd,bkhd->bhqk", (qh * hd ** -0.5).float(), kh.float())
         if mask is not None:
@@ -238,6 +257,24 @@ def mlp(
     lora_scaling: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
+    # fc1 -> quick-gelu -> fc2 in one kernel when neither matrix carries an
+    # adapter and both have plain weights and biases (the kernel's signature)
+    if (
+        _kernel_on("fused_mlp", x)
+        and _lora_get(lora, "fc1") is None
+        and _lora_get(lora, "fc2") is None
+        and "kernel" in p["fc1"]
+        and "kernel" in p["fc2"]
+        and p["fc1"].get("bias") is not None
+        and p["fc2"].get("bias") is not None
+    ):
+        from clip_lora_match_tpu_torch.ops.mlp_fused import mlp_fused
+
+        shape = x.shape
+        xc = x if compute_dtype is None else x.to(compute_dtype)
+        w1, w2 = p["fc1"]["kernel"].to(xc.dtype), p["fc2"]["kernel"].to(xc.dtype)
+        y = mlp_fused(xc.reshape(-1, shape[-1]), w1, p["fc1"]["bias"], w2, p["fc2"]["bias"])
+        return y.reshape(*shape[:-1], w2.shape[-1]).to(x.dtype)
     kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype)
     h = quick_gelu(linear(p["fc1"], x, _lora_get(lora, "fc1"), **kw))
     return linear(p["fc2"], h, _lora_get(lora, "fc2"), **kw)
@@ -266,6 +303,15 @@ def transformer_block(
         lora_scaling=lora_scaling, compute_dtype=compute_dtype,
     )
     return x
+
+
+def stack_blocks(block_list: list[Params]) -> Params:
+    """List of per-layer trees → one tree with a leading layer axis on every
+    leaf (the JAX package's scan layout); leaves may be tensors or arrays."""
+    first = block_list[0]
+    if isinstance(first, dict):
+        return {k: stack_blocks([b[k] for b in block_list]) for k in first}
+    return torch.stack([torch.as_tensor(t) for t in block_list])
 
 
 def unstack_blocks(blocks) -> list[Params]:

@@ -7,7 +7,13 @@ Every wrapper counts the launches of its kernel in a plain integer attribute
 ``ops.attention_small.attention_small``).
 """
 
-from clip_lora_match_tpu_torch.ops import attention_small, lora_matmul, retrieval_topk
+from clip_lora_match_tpu_torch.ops import (
+    attention_small,
+    flash_attention,
+    lora_matmul,
+    mlp_fused,
+    retrieval_topk,
+)
 
 KERNEL_WRAPPERS = {
     "attention_small": attention_small.attention_small,
@@ -16,6 +22,8 @@ KERNEL_WRAPPERS = {
     "tilemax": retrieval_topk.tilemax,
     "tilemax_sup": retrieval_topk.tilemax_sup,
     "tilemax_sup_q8": retrieval_topk.tilemax_sup_q8,
+    "mlp_fused": mlp_fused.mlp_fused,
+    "flash_attention": flash_attention.flash_attention,
 }
 
 

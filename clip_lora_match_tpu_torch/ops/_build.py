@@ -24,7 +24,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("attention_small", "lora_matmul", "retrieval_topk", "retrieval_tilemax")
+KERNEL_SOURCES = (
+    "attention_small", "lora_matmul", "retrieval_topk", "retrieval_tilemax",
+    "mlp_fused", "flash_attention",
+)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -5,15 +5,19 @@ the card with ``python -m pytest tests/test_torch_cuda.py -q -m cuda``. These
 cover the edges the main-path shapes in chip_smoke.py do not: ragged tiles,
 the largest rank / sequence / k each kernel takes, fully masked rows, shared
 and per-batch additive masks, index sizes that are no multiple of a tile or
-a block, rows declared invalid, D = 1024 for the int8 index, and the
-wrappers' refusals.
+a block, rows declared invalid, D = 1024 for the int8 index, flash attention
+from S = 65 to 577 under every mask kind, the fused MLP from one row to a
+32-image batch at every CLIP width with ragged edges, and the wrappers'
+refusals. Each kernel test asserts that the wrapper's launch counter moved.
 """
 
 import pytest
 import torch
 
 from clip_lora_match_tpu_torch.ops import attention_small as A
+from clip_lora_match_tpu_torch.ops import flash_attention as F
 from clip_lora_match_tpu_torch.ops import lora_matmul as L
+from clip_lora_match_tpu_torch.ops import mlp_fused as MF
 from clip_lora_match_tpu_torch.ops import retrieval_topk as R
 
 pytestmark = pytest.mark.cuda
@@ -147,9 +151,12 @@ def test_launch_counters_count_kernel_launches(gen):
     A.attention_small(q.cpu(), q.cpu(), q.cpu())  # CPU: the plain version, no launch
     R.topk_retrieve(_rand(gen, 1, 8), torch.nn.functional.normalize(_rand(gen, 20, 8), dim=1), 2)
     R.tilemax(_rand(gen, 2, 16), _rand(gen, 40, 16), 16)
+    F.flash_attention(q, q, q)
+    MF.mlp_fused(q[0, :, 0].cpu(), torch.randn(64, 8), torch.randn(8), torch.randn(8, 4), torch.randn(4))
     assert ops.launch_counts() == {
         "attention_small": 1, "lora_matmul": 0, "topk_retrieve": 1,
         "tilemax": 1, "tilemax_sup": 0, "tilemax_sup_q8": 0,
+        "mlp_fused": 0, "flash_attention": 1,
     }
 
 
@@ -175,9 +182,10 @@ def test_a_cpu_encoder_leaves_the_card_encoders_kernels_on(gen):
         enc.attach_lora(init_lora(1, arch, lcfg, device=dev), lcfg.scaling)
         encs[dev] = enc
     pix = np.zeros((1, 64, 64, 3), np.float32)
-    per_pair = {  # 2 towers x 2 layers
+    per_pair = {  # 2 towers x 2 layers; flash and the fused MLP are off by default
         "attention_small": 4, "lora_matmul": 16, "topk_retrieve": 0,
         "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
+        "mlp_fused": 0, "flash_attention": 0,
     }
     ops.reset_launch_counts()
     for dev in ("cuda", "cpu", "cuda"):
@@ -316,3 +324,130 @@ def test_pass1_wrappers_refuse_what_the_kernel_does_not_take(gen):
     # the two-pass default route raises too: it never gives way to the plain route
     with pytest.raises(ValueError, match="16-byte"):
         R.topk_retrieve_twopass(_rand(gen, 1, 50), _unit_index(gen, 70_000, 50), 5)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the fused MLP
+# ---------------------------------------------------------------------------
+
+
+def _flash_mask(kind, B, S):
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return torch.triu(torch.full((S, S), NEG, device="cuda"), diagonal=1)[None, None]
+    if kind == "per_batch":
+        m = torch.zeros(B, 1, S, S, device="cuda")
+        m[0, 0, :, S // 2:] = NEG
+        m[-1, 0, 5, :] = NEG  # a fully masked query row: uniform, as softmax(s + mask)
+        return m
+    lengths = torch.arange(B, device="cuda") * 7 + 1  # key padding, (B, 1, 1, S)
+    keep = torch.arange(S, device="cuda")[None, :] < lengths[:, None]
+    return torch.where(keep, 0.0, NEG)[:, None, None, :]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,mask",
+    [(1, 577, 3, "none"), (1, 65, 3, "none"), (3, 145, 1, "none"), (1, 197, 5, "none"),
+     (1, 257, 3, "none"), (2, 77, 3, "causal"), (3, 145, 1, "per_batch"),
+     (3, 257, 1, "key_padding"), (2, 577, 16, "causal")],
+)
+def test_flash_attention_kernel(gen, B, S, H, mask, dtype):
+    q, k, v = (_rand(gen, B, S, H, 64, dtype=dtype) for _ in range(3))
+    m = _flash_mask(mask, B, S)
+    before = F.flash_attention.launches
+    got = F.flash_attention(q, k, v, mask=m)
+    assert F.flash_attention.launches == before + 1
+    ref = F.flash_attention_plain(q, k, v, mask=m)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:  # summation order only
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+    else:  # one bf16 step of the output
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=1e-2)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(gen):
+    q = _rand(gen, 1, 65, 2, 32)
+    before = F.flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        F.flash_attention(q, q, q)
+    q16 = _rand(gen, 1, 65, 2, 64, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        F.flash_attention(q16, q16, q16)
+    assert F.flash_attention.launches == before
+
+
+def _mlp_inputs(gen, M, K, H, N, dtype):
+    return (_rand(gen, M, K, dtype=dtype), _rand(gen, K, H, dtype=dtype, scale=K ** -0.5),
+            _rand(gen, H, scale=0.1), _rand(gen, H, N, dtype=dtype, scale=H ** -0.5),
+            _rand(gen, N, scale=0.1))
+
+
+def _check_mlp(gen, M, K, H, N, dtype):
+    args = _mlp_inputs(gen, M, K, H, N, dtype)
+    before = MF.mlp_fused.launches
+    got = MF.mlp_fused(*args)
+    assert MF.mlp_fused.launches == before + 1
+    ref = MF.mlp_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    scale = ref.float().abs().max().item()
+    # fp32: summation order only; bf16: one bf16 step of the output, or of a
+    # hidden value that rounds the other way
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert (got.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("KHN", [(768, 3072, 768), (1024, 4096, 1024), (512, 2048, 512)],
+                         ids=["L14_text", "L14_vision", "B32_text"])
+@pytest.mark.parametrize("M", [1, 50, 64, 577, 18_464])
+def test_mlp_fused_kernel_bf16(gen, M, KHN):
+    _check_mlp(gen, M, *KHN, torch.bfloat16)
+
+
+@pytest.mark.parametrize("KHN", [(768, 3072, 768), (1024, 4096, 1024), (512, 2048, 512)],
+                         ids=["L14_text", "L14_vision", "B32_text"])
+@pytest.mark.parametrize("M", [1, 64, 577])
+def test_mlp_fused_kernel_fp32(gen, M, KHN):
+    _check_mlp(gen, M, *KHN, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,H,N", [(50, 768, 3000, 768), (33, 100, 200, 300), (70, 1024, 4100, 1000)],
+                         ids=["ragged_H", "ragged_K_N_unaligned", "ragged_all"])
+def test_mlp_fused_kernel_ragged(gen, M, K, H, N, dtype):
+    _check_mlp(gen, M, K, H, N, dtype)
+
+
+def test_mlp_fused_refuses_what_the_kernel_does_not_take(gen):
+    x, w1, b1, w2, b2 = _mlp_inputs(gen, 4, 64, 128, 64, torch.float16)
+    with pytest.raises(TypeError):
+        MF.mlp_fused(x, w1, b1, w2, b2)
+    x, w1, b1, w2, b2 = _mlp_inputs(gen, 4, 64, 128, 64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        MF.mlp_fused(x, w1, b1[:5], w2, b2)
+    with pytest.raises(TypeError):
+        MF.mlp_fused(x, w1.float(), b1, w2, b2)
+
+
+def test_tower_layers_launch_flash_and_the_fused_mlp_when_forced(gen):
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.nn import layers
+
+    D, Hh, S = 128, 2, 145
+    def lin(i, o):
+        return {"kernel": _rand(gen, i, o, scale=i ** -0.5), "bias": _rand(gen, o, scale=0.1)}
+    attn = {n: lin(D, D) for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+    mlp = {"fc1": lin(D, 4 * D), "fc2": lin(4 * D, D)}
+    x = _rand(gen, 2, S, D)
+    ops.reset_launch_counts()
+    plain_a, plain_m = layers.attention(attn, x, Hh), layers.mlp(mlp, x, compute_dtype=torch.bfloat16)
+    assert ops.launch_counts()["flash_attention"] == ops.launch_counts()["mlp_fused"] == 0  # defaults off
+    with layers.kernel_flags(flash_attention=True, fused_mlp=True):
+        got_a, got_m = layers.attention(attn, x, Hh), layers.mlp(mlp, x, compute_dtype=torch.bfloat16)
+    assert ops.launch_counts()["flash_attention"] == 1 and ops.launch_counts()["mlp_fused"] == 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_a, plain_a, atol=1e-4, rtol=1e-4)
+    assert (got_m - plain_m).abs().max().item() <= 3e-2 * plain_m.abs().max().item()

@@ -130,11 +130,16 @@ def test_layer_norm_bf16_is_fp32_inside():
     )
 
 
-def test_unported_kernel_flags_raise(restore_flags):  # noqa: F811
-    with pytest.raises(NotImplementedError):
-        T.set_kernel_flags(fused_mlp=True)
-    with pytest.raises(NotImplementedError):
-        T.set_kernel_flags(flash_attention=True)
+def test_kernel_flags_take_true_auto_false_and_reject_junk(restore_flags):  # noqa: F811
+    assert T._KERNEL_FLAGS["flash_attention"] is False and T._KERNEL_FLAGS["fused_mlp"] is False
+    for val in (True, "auto", False):
+        T.set_kernel_flags(fused_lora=val, flash_attention=val, small_attention=val, fused_mlp=val)
+        assert set(T._KERNEL_FLAGS.values()) == {val}
+    prev = T.set_kernel_flags(fused_mlp=True)
+    assert prev["fused_mlp"] is False and T._KERNEL_FLAGS["fused_mlp"] is True
+    for name in ("fused_lora", "flash_attention", "small_attention", "fused_mlp"):
+        with pytest.raises(ValueError):
+            T.set_kernel_flags(**{name: "on"})
     assert T.get_kernel_flags() == tuple(sorted(T._KERNEL_FLAGS.items()))
 
 

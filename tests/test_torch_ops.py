@@ -168,7 +168,12 @@ def test_cpu_tensors_launch_nothing():
     t_rt.tilemax_sup(torch.randn(1, 16), torch.randn(40, 16), 16, 2)
     qq = torch.ones(1, 16, dtype=torch.int8)
     t_rt.tilemax_sup_q8(qq, torch.ones(40, 16, dtype=torch.int8), torch.ones(40, 1), 16, 2)
+    t_ops.KERNEL_WRAPPERS["flash_attention"](q, q, q)
+    t_ops.KERNEL_WRAPPERS["mlp_fused"](
+        torch.randn(4, 8), torch.randn(8, 16), torch.randn(16), torch.randn(16, 8), torch.randn(8)
+    )
     assert t_ops.launch_counts() == {
         "attention_small": 0, "lora_matmul": 0, "topk_retrieve": 0,
         "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
+        "mlp_fused": 0, "flash_attention": 0,
     }
