@@ -8,7 +8,9 @@ Phases (any failure raises and exits non-zero):
    build of every kernel in clip_lora_match_tpu_torch/ops/csrc/ (one nvcc per
    source, all at once) into build/torch_kernels/;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the main paths give it, with kernel / plain / library times and the bound
+   the main paths give it, with kernel / plain / library times (wall per call
+   between CUDA events, and the kernel's and the library's device time from
+   torch.profiler) and the bound
    (the pass-1 tile-max kernels over 524,298- and 1,048,586-row indexes, and
    the two-pass routes through them against the plain route);
 3. the main path at full ViT-B/32 width with a seeded r=8, alpha=16 LoRA:
@@ -105,6 +107,27 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int = 10):
+    """Device time of one call of ``fn`` (every kernel and copy it starts on
+    the card), the mean over ``reps`` calls profiled after a warm-up call;
+    None when the profiler sees no device activity."""
+    rows = device_rows(torch, fn, reps)
+    return sum(r[0] for r in rows) / reps if rows else None
+
+
+def timings(torch, kern, plain, library) -> dict:
+    """A phase-2 row's times: wall per call (CUDA events over back-to-back
+    calls, so host work in a wrapper shows) of the kernel's wrapper, its
+    plain version and the library call, and the device time (torch.profiler)
+    of the wrapper's and the library call's kernels."""
+    return dict(
+        ms=cuda_ms(torch, kern), plain_ms=cuda_ms(torch, plain),
+        library_ms=None if library is None else cuda_ms(torch, library),
+        device_ms=device_ms(torch, kern),
+        library_device_ms=None if library is None else device_ms(torch, library),
+    )
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -153,9 +176,9 @@ def check_attention(torch, ops_attn, gen):
         )
         rows.append(dict(
             shape=f"B={B} S={S} H={H} hd=64 {'causal' if causal else 'maskless'} {kind}",
-            ms=cuda_ms(torch, lambda: ops_attn.attention_small(q, k, v, causal=causal)),
-            plain_ms=cuda_ms(torch, lambda: ops_attn.attention_small_plain(q, k, v, causal=causal)),
-            library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal)),
+            **timings(torch, lambda: ops_attn.attention_small(q, k, v, causal=causal),
+                      lambda: ops_attn.attention_small_plain(q, k, v, causal=causal),
+                      lambda: sdpa(qt, kt, vt, is_causal=causal)),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
     return rows, worst
@@ -165,7 +188,8 @@ def check_lora(torch, ops_lora, gen):
     rows = []
     worst = 0.0
     r, s = 8, 2.0
-    for M, D in ((50, 768), (96 * 50, 768), (64, 512), (256 * 64, 512)):
+    # B/32 image (one, 96), text (one, 256); one L/14-336 image
+    for M, D in ((50, 768), (96 * 50, 768), (64, 512), (256 * 64, 512), (577, 1024)):
         bf = torch.bfloat16
         x = torch.randn(M, D, device="cuda", generator=gen).to(bf)
         w = (torch.randn(D, D, device="cuda", generator=gen) * D ** -0.5).to(bf)
@@ -184,11 +208,9 @@ def check_lora(torch, ops_lora, gen):
         b_ms, b_by = bound_ms(nbytes, flops, "bf16")
         rows.append(dict(
             shape=f"M={M} K=N={D} r={r} bf16",
-            ms=cuda_ms(torch, lambda: ops_lora.lora_matmul(x, w, a, b, s)),
-            plain_ms=cuda_ms(torch, lambda: ops_lora.lora_matmul_plain(x, w, a, b, s)),
-            library_ms=cuda_ms(
-                torch, lambda: torch.addmm(torch.mm(torch.mm(x, a), b), x, w, beta=s)
-            ),
+            **timings(torch, lambda: ops_lora.lora_matmul(x, w, a, b, s),
+                      lambda: ops_lora.lora_matmul_plain(x, w, a, b, s),
+                      lambda: torch.addmm(torch.mm(torch.mm(x, a), b), x, w, beta=s)),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
     return rows, worst
@@ -228,9 +250,9 @@ def check_topk(torch, ops_topk, gen):
                 b_ms, b_by = bound_ms(nbytes, 2 * Q * N * D, kind)
                 rows.append(dict(
                     shape=f"Q={Q} N={N} D={D} k={k} {kind} index",
-                    ms=cuda_ms(torch, lambda: ops_topk.topk_retrieve(queries, index, k)),
-                    plain_ms=cuda_ms(torch, lambda: ops_topk.topk_retrieve_plain(queries, index, k)),
-                    library_ms=cuda_ms(torch, lambda: torch.topk(qn @ index.T, k)),
+                    **timings(torch, lambda: ops_topk.topk_retrieve(queries, index, k),
+                              lambda: ops_topk.topk_retrieve_plain(queries, index, k),
+                              lambda: torch.topk(qn @ index.T, k)),
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                 ))
     return rows, worst
@@ -267,9 +289,9 @@ def check_flash(torch, ops_flash, gen):
         b_ms, b_by = bound_ms(nbytes, 4 * B * H * S * S * 64, kind)
         rows.append(dict(
             shape=f"B={B} S={S} H={H} hd=64 {'causal mask' if causal else 'maskless'} {kind}",
-            ms=cuda_ms(torch, lambda: ops_flash.flash_attention(q, k, v, mask=mask)),
-            plain_ms=cuda_ms(torch, lambda: ops_flash.flash_attention_plain(q, k, v, mask=mask)),
-            library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lib_mask)),
+            **timings(torch, lambda: ops_flash.flash_attention(q, k, v, mask=mask),
+                      lambda: ops_flash.flash_attention_plain(q, k, v, mask=mask),
+                      lambda: sdpa(qt, kt, vt, attn_mask=lib_mask)),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
     return rows, worst
@@ -305,9 +327,8 @@ def check_mlp_fused(torch, ops_mlp, gen):
         b_ms, b_by = bound_ms(nbytes, 2 * M * H * (K + N), "bf16")
         rows.append(dict(
             shape=f"M={M} K=N={K} H={H} bf16",
-            ms=cuda_ms(torch, lambda: ops_mlp.mlp_fused(x, w1, b1, w2, b2)),
-            plain_ms=cuda_ms(torch, lambda: ops_mlp.mlp_fused_plain(x, w1, b1, w2, b2)),
-            library_ms=cuda_ms(torch, library),
+            **timings(torch, lambda: ops_mlp.mlp_fused(x, w1, b1, w2, b2),
+                      lambda: ops_mlp.mlp_fused_plain(x, w1, b1, w2, b2), library),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
     return rows, worst
@@ -333,10 +354,10 @@ def check_pass1(torch, R, gen):
     base = torch.nn.functional.normalize(torch.randn(n_big, D, device="cuda", generator=gen), dim=1)
     out = {"tilemax": ([], 0.0), "tilemax_sup": ([], 0.0), "tilemax_sup_q8": ([], 0.0)}
 
-    def record(name, shape, err, ms, plain_ms, library_ms, nbytes, ops_, kind):
+    def record(name, shape, err, kern, plain, library, nbytes, ops_, kind):
         rows, worst = out[name]
         b_ms, b_by = bound_ms(nbytes, ops_, kind)
-        rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        rows.append(dict(shape=shape, **timings(torch, kern, plain, library),
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
         out[name] = (rows, max(worst, err))
 
@@ -375,8 +396,8 @@ def check_pass1(torch, R, gen):
                     raise AssertionError(f"{name} Q={Q} N={N} {kind}: max err {err}")
                 record(
                     name, f"Q={Q} N={N} D={D} tile={tile}{f' group={group}' if name != 'tilemax' else ''} "
-                    f"{kind} index", err, cuda_ms(torch, kern), cuda_ms(torch, plain),
-                    cuda_ms(torch, lambda: torch.matmul(qc, index[:n_al].T).view(Q, -1, tile).amax(2)),
+                    f"{kind} index", err, kern, plain,
+                    lambda: torch.matmul(qc, index[:n_al].T).view(Q, -1, tile).amax(2),
                     N * D * index.element_size() + Q * D * index.element_size() + 4 * n_out,
                     2 * Q * N * D, kind,
                 )
@@ -396,7 +417,6 @@ def check_pass1(torch, R, gen):
             if not torch.equal(got, ref):
                 raise AssertionError(f"tilemax_sup_q8 Q={Q} mxu={mxu}: maxima not bit-equal "
                                      f"(max err {(got - ref).abs().max().item()})")
-        library = None
         n_al = n_big // tile * tile
         # torch._int_mm takes more than 16 rows: a smaller query block is
         # padded with zero rows to 17, and only its own rows are scaled
@@ -406,15 +426,16 @@ def check_pass1(torch, R, gen):
             dots = torch._int_mm(qp, values[:n_al].T)[:Q]
             return (dots.float() * scales[:n_al, 0]).view(Q, -1, tile).amax(2)
         try:
-            library = cuda_ms(torch, library_call)
+            library_call()
         except RuntimeError as e:  # a yardstick only: the port never calls it
             log(f"library int8 matmul not timed: {str(e).splitlines()[0]}")
+            library_call = None
         pad_note = f" (library: query padded to {qp.shape[0]} rows)" if qp.shape[0] != Q else ""
         record(
             "tilemax_sup_q8", f"Q={Q} N={n_big} D={D} tile={tile} group={group} int8 index{pad_note}", 0.0,
-            cuda_ms(torch, lambda: R.tilemax_sup_q8(qq, values, scales, tile, group)),
-            cuda_ms(torch, lambda: R.tilemax_sup_q8_plain(qq, values, scales, tile, group)),
-            library, n_big * D + n_big * 4 + Q * D + 4 * got.numel(), 2 * Q * n_big * D, "int8",
+            lambda: R.tilemax_sup_q8(qq, values, scales, tile, group),
+            lambda: R.tilemax_sup_q8_plain(qq, values, scales, tile, group),
+            library_call, n_big * D + n_big * 4 + Q * D + 4 * got.numel(), 2 * Q * n_big * D, "int8",
         )
         routes(f"q8 two-pass Q={Q}", queries,
                lambda q, k, p: R.topk_retrieve_q8(q, values, scales, k, pallas_pass1=p), 0.0)
@@ -435,16 +456,17 @@ def _host_ms(fn, reps: int = 10) -> float:
     return statistics.median(samples)
 
 
-def device_rows(torch, fn) -> list:
+def device_rows(torch, fn, reps: int = 1) -> list:
     """(device ms, count, name) of every device activity (kernels and copies)
-    in one call of ``fn`` after a warm-up call, from torch.profiler."""
+    in ``reps`` calls of ``fn`` after a warm-up call, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     per: dict[str, list] = {}
     for e in prof.events():
@@ -1056,11 +1078,12 @@ def main() -> int:
     results["mlp_fused"] = check_mlp_fused(torch, ops_mlp, gen)
     results["flash_attention"] = check_flash(torch, ops_flash, gen)
     torch.cuda.empty_cache()
+    fmt = lambda v: "null" if v is None else f"{v:.5f}"  # noqa: E731
     for name, (rows, _) in results.items():
         for row in rows:
-            lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
-            log(f"{name} {row['shape']}: kernel_ms {row['ms']:.5f} plain_ms {row['plain_ms']:.5f} "
-                f"library_ms {lib} bound_ms {row['bound_ms']:.5f} "
+            log(f"{name} {row['shape']}: kernel_ms {row['ms']:.5f} device_ms {fmt(row['device_ms'])} "
+                f"plain_ms {row['plain_ms']:.5f} library_ms {fmt(row['library_ms'])} "
+                f"library_device_ms {fmt(row['library_device_ms'])} bound_ms {row['bound_ms']:.5f} "
                 f"({row['bound_by']}) max_abs_err {row['max_abs_err']:.3e} [{card}]")
 
     counts, (enc, texts, images, paths) = main_path(torch, card)
@@ -1082,6 +1105,7 @@ def main() -> int:
             "replaces": site, "launches": counts[name], "max_abs_err": worst,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
+            "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))

@@ -11,6 +11,7 @@ build costs the slowest file, not their sum. Nothing here runs at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -30,6 +31,7 @@ KERNEL_SOURCES = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[str, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -94,13 +96,43 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu`` with its argument types set once (and an
+    int result), so a call passes plain Python ints and floats and builds no
+    ctypes objects."""
+    key = f"{name}:{symbol}"
+    fn = _FUNCS.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[key] = fn
+    return fn
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def stream_ptr(tensor) -> int:
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
     import torch
 
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    return _sm_count(device.index if device.index is not None else 0)
+
+
+def stream_ptr(tensor) -> int:
+    """The current CUDA stream of ``tensor``'s device as an int."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:  # the same stream, without building a Stream object
+        return raw(tensor.device.index if tensor.device.index is not None else torch.cuda.current_device())
     return torch.cuda.current_stream(tensor.device).cuda_stream

@@ -66,19 +66,39 @@ def attention_small_plain(
     return (ctx / denom).to(q.dtype)
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# attention_small_fwd(q, k, v, o, lengths, mask, mask_bstride, B, S, H, head_dim,
+#                     scale, causal, dtype, warps_per_block, split, stream)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P)
+_KSPLIT = 4
+
+
+def launch_shape(B: int, S: int, H: int, dtype, sms: int) -> tuple[int, int]:
+    """(warps per block, split). A request (fewer heads than SMs) wants short
+    chains and many blocks; a batch wants K and V staged as few times as it
+    can. bf16: at a request a block takes 16 query rows and splits their keys
+    across 4 warps (split 4); at a batch it takes every row of its head, one
+    warp per 16 (split 1). fp32: 8 warps, 2 query rows a thread at a request,
+    4 at a batch (split = rows a thread)."""
+    request = B * H < sms
+    if dtype == torch.float32:
+        return 8, (2 if request else 4)
+    return (_KSPLIT, _KSPLIT) if request else (-(-S // 16), 1)
+
+
 def _launch(q, k, v, mask, scale, causal, lengths) -> torch.Tensor:
     B, S, H, hd = q.shape
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"attention_small: float32 or bfloat16 q/k/v, got {q.dtype}")
     if hd != 64 or S > MAX_SEQ:
         raise ValueError(f"attention_small kernel: head_dim 64 and S <= {MAX_SEQ}, got {q.shape}")
-    for t in (k, v):
-        if t.shape != q.shape or t.device != q.device:
-            raise ValueError("attention_small: q, k, v must share shape and device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if k.shape != q.shape or v.shape != q.shape or k.device != q.device or v.device != q.device:
+        raise ValueError("attention_small: q, k, v must share shape and device")
+    q, k, v = (t if t.is_contiguous() else t.contiguous() for t in (q, k, v))
     len_ptr, mask_ptr, mask_bstride = None, None, 0
     if lengths is not None:
-        lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+        if lengths.dtype != torch.int32 or lengths.device != q.device or not lengths.is_contiguous():
+            lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
         if lengths.shape != (B,):
             raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
         len_ptr = lengths.data_ptr()
@@ -88,15 +108,11 @@ def _launch(q, k, v, mask, scale, causal, lengths) -> torch.Tensor:
         mask = mask.expand(nb, 1, S, S).contiguous()
         mask_ptr, mask_bstride = mask.data_ptr(), (0 if nb == 1 else S * S)
     out = torch.empty_like(q)
-    lib = _build.load("attention_small")
-    rc = lib.attention_small_fwd(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(len_ptr), ctypes.c_void_p(mask_ptr),
-        ctypes.c_longlong(mask_bstride), ctypes.c_int(B), ctypes.c_int(S),
-        ctypes.c_int(H), ctypes.c_int(hd), ctypes.c_float(scale),
-        ctypes.c_int(int(causal)), ctypes.c_int(_DTYPES[q.dtype]),
-        ctypes.c_void_p(_build.stream_ptr(q)),
+    warps, split = launch_shape(B, S, H, q.dtype, _build.sm_count(q.device))
+    rc = _build.function("attention_small", "attention_small_fwd", _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), len_ptr, mask_ptr,
+        mask_bstride, B, S, H, hd, scale, int(causal), _DTYPES[q.dtype], warps, split,
+        _build.stream_ptr(q),
     )
     _build.check(rc, "attention_small_fwd")
     attention_small.launches += 1

@@ -12,31 +12,54 @@ dtype before fc2; the output has x's dtype. The kernel is
 from __future__ import annotations
 
 import ctypes
-import functools
+from typing import NamedTuple
 
 import torch
 
 from clip_lora_match_tpu_torch.ops import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the bf16 kernel's tile: rows of x, columns of y, hidden units per chunk
+_DTYPES = (torch.float32, torch.bfloat16)
+_BODIES = {"fp32": 0, "wmma": 1, "wgmma": 2}
+# the wgmma body: rows of x per CTA, output columns per CTA, hidden units each
+# CTA computes per step; the WMMA body: rows, columns, hidden units per chunk
+_TM, _TN, _TS = 64, 256, 64
 _BM, _BN, _BH = 64, 512, 64
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+class Plan(NamedTuple):
+    """How one call runs: the kernel body, the CTAs of a cluster that share a
+    row tile's fc1 (wgmma) or 1, the hidden units per step of a tile, and the
+    blocks (clusters) that split each tile's hidden, added in order."""
+
+    body: str
+    cluster: int
+    chunk: int
+    splits: int
 
 
-def _hidden_splits(M: int, N: int, H: int, sms: int) -> int:
-    """How many blocks share each (row, column) tile's hidden in the bf16
-    kernel: enough to give each SM a block (one fits an SM) when the tiles
-    alone do not, never more blocks than SMs, whole 64-unit chunks each."""
-    tiles = -(-M // _BM) * -(-N // _BN)
-    n_chunks = -(-H // _BH)
+def takes_wgmma(K: int, H: int, N: int, aligned: bool) -> bool:
+    """Whether the TMA/wgmma body takes the shape: x resident (K a multiple of
+    64 up to 1024), 256-column CTA tiles in clusters of 2 to 4, 16-byte TMA
+    strides and bases. Every CLIP MLP shape does (N = K in 512, 768, 1024)."""
+    return (aligned and K % 64 == 0 and K <= 1024 and N % _TN == 0 and 2 * _TN <= N <= 4 * _TN
+            and H % 8 == 0)
+
+
+def plan(M: int, K: int, H: int, N: int, dtype, aligned: bool, sms: int) -> Plan:
+    """The launch plan. bf16 tiles that are fewer than the SMs also split the
+    hidden: enough splits to give each SM a block (one fits an SM), never more
+    blocks than SMs, whole chunks each, every split non-empty."""
+    if dtype == torch.float32:
+        return Plan("fp32", 1, 32, 1)
+    if takes_wgmma(K, H, N, aligned):
+        cluster = N // _TN
+        body, chunk, tiles = "wgmma", _TS * cluster, -(-M // _TM) * cluster
+    else:
+        body, cluster, chunk, tiles = "wmma", 1, _BH, -(-M // _BM) * -(-N // _BN)
+    n_chunks = -(-H // chunk)
     splits = min(n_chunks, max(1, sms // tiles))
     per = -(-n_chunks // splits)
-    return -(-n_chunks // per)
+    return Plan(body, cluster, chunk, -(-n_chunks // per))
 
 
 def _gelu_f32(h: torch.Tensor) -> torch.Tensor:
@@ -50,6 +73,11 @@ def mlp_fused_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     h = _gelu_f32(h).to(x.dtype)
     y = h.float() @ w2.float() + b2.float()
     return y.to(x.dtype)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# mlp_fused_fwd(x, w1, b1, w2, b2, y, part, M, K, H, N, splits, body, stream)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 
 
 def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -68,24 +96,25 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
         )
     if not all(t.device == x.device for t in (w1, b1, w2, b2)):
         raise ValueError("mlp_fused: x, W1, b1, W2, b2 must be on one device")
-    x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
-    b1 = b1.to(torch.float32).contiguous()
-    b2 = b2.to(torch.float32).contiguous()
+    x, w1, w2 = (t if t.is_contiguous() else t.contiguous() for t in (x, w1, w2))
+    b1, b2 = (t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+              for t in (b1, b2))
+    aligned = (x.data_ptr() | w1.data_ptr() | w2.data_ptr()) % 16 == 0
+    return _run(x, w1, b1, w2, b2, plan(M, K, H, N, x.dtype, aligned, _build.sm_count(x.device)))
+
+
+def _run(x, w1, b1, w2, b2, p: Plan) -> torch.Tensor:
+    """Launch the kernel under plan ``p`` (checked inputs; the C side refuses
+    a plan the shape does not fit)."""
+    M, K = x.shape
+    H, N = w1.shape[1], w2.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    splits = 1
-    if x.dtype == torch.bfloat16:
-        splits = _hidden_splits(M, N, H, _sm_count(x.device.index or 0))
     # fp32 partial sums of the hidden splits, added by the kernel's second pass
-    part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
-    lib = _build.load("mlp_fused")
-    rc = lib.mlp_fused_fwd(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w1.data_ptr()),
-        ctypes.c_void_p(b1.data_ptr()), ctypes.c_void_p(w2.data_ptr()),
-        ctypes.c_void_p(b2.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-        ctypes.c_void_p(None if part is None else part.data_ptr()),
-        ctypes.c_int(M), ctypes.c_int(K), ctypes.c_int(H), ctypes.c_int(N),
-        ctypes.c_int(splits), ctypes.c_int(_DTYPES[x.dtype]),
-        ctypes.c_void_p(_build.stream_ptr(x)),
+    part = torch.empty((p.splits, M, N), dtype=torch.float32, device=x.device) if p.splits > 1 else None
+    rc = _build.function("mlp_fused", "mlp_fused_fwd", _ARGTYPES)(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+        None if part is None else part.data_ptr(), M, K, H, N, p.splits, _BODIES[p.body],
+        _build.stream_ptr(x),
     )
     _build.check(rc, "mlp_fused_fwd")
     mlp_fused.launches += 1

@@ -5,15 +5,21 @@ the card with ``python -m pytest tests/test_torch_cuda.py -q -m cuda``. These
 cover the edges the main-path shapes in chip_smoke.py do not: ragged tiles,
 the largest rank / sequence / k each kernel takes, fully masked rows, shared
 and per-batch additive masks, index sizes that are no multiple of a tile or
-a block, rows declared invalid, D = 1024 for the int8 index, flash attention
-from S = 65 to 577 under every mask kind, the fused MLP from one row to a
-32-image batch at every CLIP width with ragged edges, and the wrappers'
-refusals. Each kernel test asserts that the wrapper's launch counter moved.
+a block, rows declared invalid, D = 1024 for the int8 index, small attention
+at every S from 1 to 128 that straddles a 16-row tile under every mask mode
+(fully masked and zero-length rows included) and on an unaligned view, flash
+attention from S = 65 to 577 under every mask kind, the fused MLP from one
+row to a 32-image batch at every CLIP width through the wgmma body, every
+hidden split count, bit-equal reruns, ragged and unaligned inputs through the
+WMMA body (each test checks the body the wrapper's plan picks), and the
+wrappers' refusals. Each
+kernel test asserts that the wrapper's launch counter moved.
 """
 
 import pytest
 import torch
 
+from clip_lora_match_tpu_torch.ops import _build
 from clip_lora_match_tpu_torch.ops import attention_small as A
 from clip_lora_match_tpu_torch.ops import flash_attention as F
 from clip_lora_match_tpu_torch.ops import lora_matmul as L
@@ -68,6 +74,72 @@ def test_attention_small_kernel(gen, B, S, H, mode, dtype):
         assert torch.all(got[1, 3] == 0)
     if mode == "lengths":
         assert torch.all(got[2] == 0)
+
+
+def _attn_kwargs(mode, B, S):
+    """Keyword arguments of one mask mode; each masked mode holds a fully masked
+    query row (batch row 1, query 0) or a zero-length row (batch row 1)."""
+    if mode == "none":
+        return {}
+    if mode == "causal":
+        return dict(causal=True)
+    if mode == "lengths":  # causal + key lengths: batch row 1 has none
+        return dict(causal=True, lengths=torch.tensor([S, 0] + [max(1, S // 2)] * (B - 2),
+                                                      device="cuda", dtype=torch.int32))
+    m = torch.zeros(B if mode == "batch_mask" else 1, 1, S, S, device="cuda")
+    m[..., (S + 1) // 2:] = NEG  # keys past the middle masked for every row
+    if mode == "batch_mask":
+        m[1, 0, 0, :] = NEG  # query 0 of batch row 1 sees nothing
+    return dict(mask=m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "causal", "lengths", "shared_mask", "batch_mask"])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 50, 64, 77, 128])
+def test_attention_small_kernel_every_length(gen, S, mode, dtype):
+    B, H = 3, 2
+    q, k, v = (_rand(gen, B, S, H, 64, dtype=dtype) for _ in range(3))
+    kw = _attn_kwargs(mode, B, S)
+    before = A.attention_small.launches
+    got = A.attention_small(q, k, v, **kw)
+    assert A.attention_small.launches == before + 1
+    ref = A.attention_small_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+    if mode == "lengths":
+        assert torch.all(got[1] == 0)
+    if mode == "batch_mask":
+        assert torch.all(got[1, 0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H", [(1, 50, 12), (96, 50, 12), (256, 77, 8)])
+def test_attention_small_kernel_at_request_and_batch_shapes(gen, B, S, H, dtype):
+    # one warp per block at a request, the whole head per block at a batch
+    q, k, v = (_rand(gen, B, S, H, 64, dtype=dtype) for _ in range(3))
+    causal = S == 77
+    got = A.attention_small(q, k, v, causal=causal)
+    ref = A.attention_small_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_small_kernel_on_an_unaligned_view(gen, dtype):
+    # q starts one element into its storage: the kernel stages element by element
+    B, S, H = 2, 50, 3
+    n = B * S * H * 64
+    q = _rand(gen, n + 1, dtype=dtype)[1:].view(B, S, H, 64)
+    k, v = (_rand(gen, B, S, H, 64, dtype=dtype) for _ in range(2))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    for kw in ({}, dict(causal=True)):
+        got = A.attention_small(q, k, v, **kw)
+        ref = A.attention_small_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        atol = 1e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -385,11 +457,15 @@ def _mlp_inputs(gen, M, K, H, N, dtype):
             _rand(gen, N, scale=0.1))
 
 
-def _check_mlp(gen, M, K, H, N, dtype):
-    args = _mlp_inputs(gen, M, K, H, N, dtype)
+def _check_mlp(gen, M, K, H, N, dtype, body=None, args=None):
+    args = args if args is not None else _mlp_inputs(gen, M, K, H, N, dtype)
     before = MF.mlp_fused.launches
     got = MF.mlp_fused(*args)
     assert MF.mlp_fused.launches == before + 1
+    if body is not None:  # the body the wrapper's plan gave these inputs
+        x, w1, _, w2, _ = args
+        aligned = (x.data_ptr() | w1.data_ptr() | w2.data_ptr()) % 16 == 0
+        assert MF.plan(M, K, H, N, dtype, aligned, _build.sm_count(x.device)).body == body
     ref = MF.mlp_fused_plain(*args)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (M, N)
@@ -402,9 +478,10 @@ def _check_mlp(gen, M, K, H, N, dtype):
 
 @pytest.mark.parametrize("KHN", [(768, 3072, 768), (1024, 4096, 1024), (512, 2048, 512)],
                          ids=["L14_text", "L14_vision", "B32_text"])
-@pytest.mark.parametrize("M", [1, 50, 64, 577, 18_464])
+@pytest.mark.parametrize("M", [1, 50, 63, 64, 65, 577, 18_464])
 def test_mlp_fused_kernel_bf16(gen, M, KHN):
-    _check_mlp(gen, M, *KHN, torch.bfloat16)
+    # every CLIP width takes the wgmma body (N = 768: a cluster of 3 CTAs)
+    _check_mlp(gen, M, *KHN, torch.bfloat16, body="wgmma")
 
 
 @pytest.mark.parametrize("KHN", [(768, 3072, 768), (1024, 4096, 1024), (512, 2048, 512)],
@@ -418,7 +495,51 @@ def test_mlp_fused_kernel_fp32(gen, M, KHN):
 @pytest.mark.parametrize("M,K,H,N", [(50, 768, 3000, 768), (33, 100, 200, 300), (70, 1024, 4100, 1000)],
                          ids=["ragged_H", "ragged_K_N_unaligned", "ragged_all"])
 def test_mlp_fused_kernel_ragged(gen, M, K, H, N, dtype):
-    _check_mlp(gen, M, K, H, N, dtype)
+    # H = 3000: the wgmma body, its last chunk zero-filled by TMA; rows of 200
+    # and 600 bytes, N off the 256-column tile: the WMMA body
+    body = "fp32" if dtype == torch.float32 else ("wgmma" if H == 3000 else "wmma")
+    _check_mlp(gen, M, K, H, N, dtype, body=body)
+
+
+def test_mlp_fused_kernel_on_an_unaligned_view(gen):
+    # x starts one element into its storage: no TMA, the WMMA body takes it
+    M, K, H, N = 70, 768, 3072, 768
+    args = list(_mlp_inputs(gen, M, K, H, N, torch.bfloat16))
+    args[0] = _rand(gen, M * K + 1, dtype=torch.bfloat16)[1:].view(M, K)
+    assert args[0].data_ptr() % 16 != 0
+    _check_mlp(gen, M, K, H, N, torch.bfloat16, body="wmma", args=args)
+
+
+@pytest.mark.parametrize("KHN", [(768, 3072, 768), (1024, 4096, 1024), (512, 2048, 512)],
+                         ids=["L14_text", "L14_vision", "B32_text"])
+def test_mlp_fused_every_split_count(gen, KHN):
+    # each split count the plan can give for this width (one 64-row tile, so
+    # every count fits the card), held to the plain version and run twice
+    K, H, N = KHN
+    M = 64
+    x, w1, b1, w2, b2 = _mlp_inputs(gen, M, K, H, N, torch.bfloat16)
+    ref = MF.mlp_fused_plain(x, w1, b1, w2, b2).float()
+    chunk = 64 * (N // 256)
+    n_chunks = -(-H // chunk)
+    counts = sorted({-(-n_chunks // -(-n_chunks // s)) for s in range(1, n_chunks + 1)})
+    assert counts[0] == 1 and counts[-1] == n_chunks
+    for splits in counts:
+        p = MF.Plan("wgmma", N // 256, chunk, splits)
+        got = MF._run(x, w1, b1, w2, b2, p)
+        again = MF._run(x, w1, b1, w2, b2, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"splits={splits}: two runs differ"
+        err = (got.float() - ref).abs().max().item()
+        assert err <= 1e-2 * ref.abs().max().item(), f"splits={splits}: max err {err}"
+
+
+@pytest.mark.parametrize("M", [577, 18_464])
+def test_mlp_fused_is_bit_equal_across_runs(gen, M):
+    # the hidden splits are added in order: no atomics, the same bits each run
+    args = _mlp_inputs(gen, M, 1024, 4096, 1024, torch.bfloat16)
+    first = MF.mlp_fused(*args)
+    for _ in range(2):
+        assert torch.equal(MF.mlp_fused(*args), first)
 
 
 def test_mlp_fused_refuses_what_the_kernel_does_not_take(gen):

@@ -263,3 +263,68 @@ def test_tiny_model_through_flash_and_fused_mlp_matches_jax(restore_flags):  # n
     ref_img, ref_txt = jenc.encode_image_batch(pix), jenc.encode_text(texts)
     assert np.abs(got_img - ref_img).max() <= 1e-4
     assert np.abs(got_txt - ref_txt).max() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the fused MLP's launch plan (pure Python: the card runs what it says)
+# ---------------------------------------------------------------------------
+
+CLIP_MLPS = {"B32_text": (512, 2048, 512), "L14_text": (768, 3072, 768), "L14_vision": (1024, 4096, 1024)}
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("width", sorted(CLIP_MLPS))
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 577, 18_464])
+def test_mlp_plan_covers_each_hidden_chunk_once(M, width, sms):
+    K, H, N = CLIP_MLPS[width]
+    p = MF.plan(M, K, H, N, torch.bfloat16, True, sms)
+    assert p.body == "wgmma" and p.cluster == N // 256 and p.chunk == 64 * p.cluster
+    n_chunks = -(-H // p.chunk)
+    cps = -(-n_chunks // p.splits)  # chunks per split, as the kernel's entry point derives it
+    covered = [c for z in range(p.splits) for c in range(z * cps, min(n_chunks, (z + 1) * cps))]
+    assert covered == list(range(n_chunks))  # in order, each once
+    assert all(z * cps < n_chunks for z in range(p.splits))  # no empty split
+    ctas = -(-M // 64) * p.cluster * p.splits
+    if p.splits > 1:
+        assert ctas <= sms
+    else:  # a split would not fit: the tiles alone fill (or pass) the SMs, or nothing to split
+        assert -(-M // 64) * p.cluster * 2 > sms or n_chunks == 1
+
+
+@pytest.mark.parametrize(
+    "M,K,H,N,aligned,body",
+    [(577, 1024, 4096, 1024, True, "wgmma"), (64, 768, 3072, 768, True, "wgmma"),
+     (50, 512, 2048, 512, True, "wgmma"), (577, 1024, 4096, 1024, False, "wmma"),
+     (33, 100, 200, 300, True, "wmma"), (70, 1024, 4100, 1000, True, "wmma"),
+     (50, 768, 3000, 768, True, "wgmma"), (8, 256, 1024, 256, True, "wmma"),
+     (8, 1088, 4096, 1024, True, "wmma"), (8, 1024, 4096, 1280, True, "wmma"),
+     (8, 768, 3004, 768, True, "wmma")],
+    ids=["L14_vision", "L14_text", "B32_text", "unaligned", "ragged_K_N", "ragged_all",
+         "ragged_H_even", "one_cta_cluster", "K_past_resident_x", "cluster_past_4", "H_stride_off_16B"],
+)
+def test_mlp_plan_picks_the_body(M, K, H, N, aligned, body):
+    p = MF.plan(M, K, H, N, torch.bfloat16, aligned, 132)
+    assert p.body == body
+    assert (p.cluster, p.chunk) == ((N // 256, 64 * (N // 256)) if body == "wgmma" else (1, 64))
+    assert MF.plan(M, K, H, N, torch.float32, aligned, 132) == MF.Plan("fp32", 1, 32, 1)
+
+
+def test_mlp_plan_at_one_l14_image():
+    # 10 row tiles x 4 CTAs = 40: three splits of the 16 chunks give 120 CTAs
+    assert MF.plan(577, 1024, 4096, 1024, torch.bfloat16, True, 132) == MF.Plan("wgmma", 4, 256, 3)
+    assert MF.plan(18_464, 1024, 4096, 1024, torch.bfloat16, True, 132) == MF.Plan("wgmma", 4, 256, 1)
+    assert MF.plan(64, 768, 3072, 768, torch.bfloat16, True, 132) == MF.Plan("wgmma", 3, 192, 16)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,dtype,want",
+    [(1, 50, 12, torch.bfloat16, (4, 4)), (1, 77, 8, torch.bfloat16, (4, 4)),
+     (96, 50, 12, torch.bfloat16, (4, 1)), (256, 77, 8, torch.bfloat16, (5, 1)),
+     (256, 64, 8, torch.bfloat16, (4, 1)), (20, 128, 8, torch.bfloat16, (8, 1)),
+     (1, 50, 12, torch.float32, (8, 2)), (96, 50, 12, torch.float32, (8, 4)),
+     (8, 77, 8, torch.float32, (8, 2))],
+)
+def test_attention_small_launch_shape(B, S, H, dtype, want):
+    from clip_lora_match_tpu_torch.ops import attention_small as A
+
+    assert A.launch_shape(B, S, H, dtype, 132) == want
