@@ -8,14 +8,17 @@ Phases (any failure raises and exits non-zero):
    build of every kernel in clip_lora_match_tpu_torch/ops/csrc/ (one nvcc per
    source, all at once) into build/torch_kernels/;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the main paths give it, with kernel / plain / library times (wall per call
-   between CUDA events, and the kernel's and the library's device time from
-   torch.profiler) and the bound
+   the main paths give it (lora_matmul per projection and as the grouped
+   q/k/v launch, with the body and tiles its plan picks), with kernel / plain
+   / library times (wall per call between CUDA events, and the kernel's and
+   the library's device time from torch.profiler) and the bound (fp32 flash
+   at the 3xTF32 rate its kernel computes at)
    (the pass-1 tile-max kernels over 524,298- and 1,048,586-row indexes, and
    the two-pass routes through them against the plain route);
 3. the main path at full ViT-B/32 width with a seeded r=8, alpha=16 LoRA:
    text, image and fused SeekerService.search_items requests over a
-   44,446-row fp32 index, self-retrieval checks, launch-count checks, a
+   44,446-row fp32 index, self-retrieval checks, launch-count checks (two
+   lora_matmul launches per adapted attention layer: q/k/v grouped, out), a
    96-image / 256-text batch held against the plain fp32 path, request
    latency, host preprocessing time, batch throughput, and device time by
    kernel (torch.profiler) for one fused request and one 96-image batch;
@@ -56,7 +59,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+# "3xtf32": fp32 products as three TF32 tensor-core products (hi.hi + hi.lo + lo.hi)
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12, "3xtf32": 495e12 / 3}
 SEED = 0
 INDEX_ROWS = 44_436  # random unit rows; +5 texts +5 images = 44,446
 HBM_ROWS = 1_048_576  # phase 4 (a), (c): seeded unit rows; +10 custom rows
@@ -81,6 +85,12 @@ KERNELS = {
 }
 OFF_BY_DEFAULT = {"mlp_fused": 0, "flash_attention": 0}  # off by default: phases 3-4 never launch them
 L14_INDEX_ROWS = 44_436  # phase 5: seeded unit rows at D=768; +5 texts +5 images
+# SMOKE_UNGROUPED_LORA=1 runs this script in a checkout from before the
+# grouped q/k/v launch (an A/B against it): 4 lora_matmul launches per
+# adapted attention layer, and the grouped phase-2 rows as one (M, 3N)
+# product with A contiguous. Otherwise q/k/v are one launch, out_proj another.
+UNGROUPED = os.environ.get("SMOKE_UNGROUPED_LORA") == "1"
+LORA_PER_LAYER = 4 if UNGROUPED else 2
 
 
 def log(*parts) -> None:
@@ -185,31 +195,63 @@ def check_attention(torch, ops_attn, gen):
 
 
 def check_lora(torch, ops_lora, gen):
+    """lora_matmul against its plain version, A in the serving copy's layout
+    (the transposed view of a contiguous (r, K) tensor). Per projection: B/32
+    image (one, 96), text (one, 256), one L/14-336 image; then the grouped
+    q/k/v launch (groups=3 on [Wq|Wk|Wv], [Aq|Ak|Av], blockdiag(Bq, Bk, Bv),
+    as nn.layers.group_qkv builds them) of every tower at a request and at a
+    batch (``UNGROUPED``: the same products with A contiguous and an (M, 3N)
+    output). The bound counts the work the three projections need: B as
+    3 x r x D, not blockdiag's zero blocks."""
     rows = []
     worst = 0.0
-    r, s = 8, 2.0
-    # B/32 image (one, 96), text (one, 256); one L/14-336 image
-    for M, D in ((50, 768), (96 * 50, 768), (64, 512), (256 * 64, 512), (577, 1024)):
-        bf = torch.bfloat16
+    r, s, bf = 8, 2.0, torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def call(fn, x, w, a, b, G):
+        return fn(x, w, a, b, s) if UNGROUPED else fn(x, w, a, b, s, groups=G)
+
+    shapes = [  # (M, K = N per projection, groups)
+        (50, 768, 1), (96 * 50, 768, 1), (64, 512, 1), (256 * 64, 512, 1), (577, 1024, 1),
+        (50, 768, 3), (64, 512, 3), (577, 1024, 3), (64, 768, 3),
+        (96 * 50, 768, 3), (256 * 64, 512, 3), (32 * 577, 1024, 3),
+    ]
+    for M, D, G in shapes:
         x = torch.randn(M, D, device="cuda", generator=gen).to(bf)
-        w = (torch.randn(D, D, device="cuda", generator=gen) * D ** -0.5).to(bf)
-        a = (torch.randn(D, r, device="cuda", generator=gen) * D ** -0.5).to(bf)
-        b = (torch.randn(r, D, device="cuda", generator=gen) * 0.05).to(bf)
-        got = ops_lora.lora_matmul(x, w, a, b, s)
-        ref = ops_lora.lora_matmul_plain(x, w, a, b, s)
+
+        def proj():
+            return ((torch.randn(D, D, device="cuda", generator=gen) * D ** -0.5).to(bf),
+                    (torch.randn(r, D, device="cuda", generator=gen) * D ** -0.5).to(bf).t(),
+                    (torch.randn(r, D, device="cuda", generator=gen) * 0.05).to(bf))
+        if G == 1:
+            w, a, b = proj()
+        else:
+            qkv = [proj() for _ in range(3)]
+            w = torch.cat([t[0] for t in qkv], 1)
+            a = torch.cat([t[1] for t in qkv], 1).t().contiguous().t()
+            b = torch.block_diag(*[t[2] for t in qkv])
+        if UNGROUPED:
+            a = a.contiguous()
+        N, rr = w.shape[1], a.shape[1]
+        got = call(ops_lora.lora_matmul, x, w, a, b, G)
+        ref = call(ops_lora.lora_matmul_plain, x, w, a, b, G)
         torch.cuda.synchronize()
         scale = ref.float().abs().max().item()
         err = (got.float() - ref.float()).abs().max().item()
+        what = f"M={M} K={D} N={N} r={rr}{' groups=3' if G > 1 else ''} bf16"
+        if not UNGROUPED:  # the body and tiles this shape runs
+            what += f" [{ops_lora.plan(M, N, D, rr, bf, True, sms, G)}]"
         if not err <= 1e-2 * scale:
-            raise AssertionError(f"lora_matmul M={M} D={D}: max err {err} vs scale {scale}")
+            raise AssertionError(f"lora_matmul {what}: max err {err} vs scale {scale}")
         worst = max(worst, err)
-        nbytes = (M * D + D * D + D * r + r * D + M * D) * 2
-        flops = 2 * M * D * D + 2 * M * r * (D + D)
+        rp = rr // G  # each projection's rank
+        nbytes = (M * D + D * N + D * rr + rp * N + M * N) * 2
+        flops = 2 * M * N * D + 2 * M * rp * (G * D + N)
         b_ms, b_by = bound_ms(nbytes, flops, "bf16")
         rows.append(dict(
-            shape=f"M={M} K=N={D} r={r} bf16",
-            **timings(torch, lambda: ops_lora.lora_matmul(x, w, a, b, s),
-                      lambda: ops_lora.lora_matmul_plain(x, w, a, b, s),
+            shape=what,
+            **timings(torch, lambda: call(ops_lora.lora_matmul, x, w, a, b, G),
+                      lambda: call(ops_lora.lora_matmul_plain, x, w, a, b, G),
                       lambda: torch.addmm(torch.mm(torch.mm(x, a), b), x, w, beta=s)),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
@@ -286,9 +328,13 @@ def check_flash(torch, ops_flash, gen):
         lib_mask = None if mask is None else mask.to(dtype)
         # the additive mask is applied to every (query, key) pair: count them all
         nbytes = 4 * B * S * H * 64 * q.element_size() + (S * S * 4 if causal else 0)
-        b_ms, b_by = bound_ms(nbytes, 4 * B * H * S * S * 64, kind)
+        # fp32 products run as 3xTF32 on the tensor cores: the bound of that
+        # arithmetic (3 TF32 products per product at 495 TFLOP/s), not of fp32 FMA
+        arith = "3xtf32" if dtype == f32 else kind
+        b_ms, b_by = bound_ms(nbytes, 4 * B * H * S * S * 64, arith)
         rows.append(dict(
-            shape=f"B={B} S={S} H={H} hd=64 {'causal mask' if causal else 'maskless'} {kind}",
+            shape=f"B={B} S={S} H={H} hd=64 {'causal mask' if causal else 'maskless'} {kind}"
+                  f"{' (bound: 3xTF32)' if arith == '3xtf32' else ''}",
             **timings(torch, lambda: ops_flash.flash_attention(q, k, v, mask=mask),
                       lambda: ops_flash.flash_attention_plain(q, k, v, mask=mask),
                       lambda: sdpa(qt, kt, vt, attn_mask=lib_mask)),
@@ -557,7 +603,7 @@ def main_path(torch, card: str):
     layers = arch.vision_layers  # == text_layers for B/32
     want = {
         "attention_small": 4 * n * layers,      # 12 per single-tower request
-        "lora_matmul": 4 * 4 * n * layers,      # q/k/v/out per layer per tower
+        "lora_matmul": LORA_PER_LAYER * 4 * n * layers,  # per layer per tower
         "topk_retrieve": 3 * n,                 # one search per request
         "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,  # N < TWOPASS_MIN_N
         **OFF_BY_DEFAULT,
@@ -738,7 +784,8 @@ def hbm_path(torch, card, enc, texts, images, paths):
         launches[tag] = counts
         log(f"phase 4 ({tag}) {what}: launches {json.dumps(counts)}")
         layers = enc.arch.vision_layers
-        want = {"attention_small": 4 * n * layers, "lora_matmul": 16 * n * layers, "topk_retrieve": 0,
+        want = {"attention_small": 4 * n * layers, "lora_matmul": LORA_PER_LAYER * 4 * n * layers,
+                "topk_retrieve": 0,
                 "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0, **OFF_BY_DEFAULT}
         want[kernel] = 3 * n + 1  # one per search, the 64-query batch included
         if counts != want:
@@ -908,7 +955,7 @@ def l14_path(torch, card, texts, images, paths):
             vl, tl = arch.vision_layers, arch.text_layers
             want = {
                 "attention_small": 2 * n * tl,              # text tower: text + fused requests
-                "lora_matmul": 4 * 2 * n * (vl + tl),       # q/k/v/out per layer per tower pass
+                "lora_matmul": LORA_PER_LAYER * 2 * n * (vl + tl),  # per layer per tower pass
                 "topk_retrieve": 3 * n,
                 "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
                 "mlp_fused": 2 * n * (vl + tl),              # every MLP of both towers

@@ -8,8 +8,10 @@ and bf16 compute with fp32 accumulation on the accelerator (fp32 on the CPU).
 
 The master weights stay fp32. A serving copy (matmul kernels and LoRA
 factors in the compute dtype, transformer layers unstacked into per-layer
-views) is built at the first encode and rebuilt only when the weights or the
-adapter change, so a request never re-reads the fp32 tree to cast it.
+views, each adapted attention layer's q/k/v operands grouped for one
+``lora_matmul`` launch) is built at the first encode and rebuilt only when
+the weights or the adapter change, so a request never re-reads the fp32 tree
+to cast it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig, lo
 from clip_lora_match_tpu_torch.core.device import resolve_device
 from clip_lora_match_tpu_torch.models import clip as clip_model
 from clip_lora_match_tpu_torch.models.io import load_params, to_device
-from clip_lora_match_tpu_torch.nn.layers import kernel_flags, unstack_blocks
+from clip_lora_match_tpu_torch.nn.layers import QKV, group_qkv, kernel_flags, unstack_blocks
 from clip_lora_match_tpu_torch.preprocess.pipeline import ClipPreprocessor
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 96, 128, 256, 512, 1024)
@@ -48,15 +50,35 @@ def _bucket(n: int) -> int:
 def _serving_tree(tree, dtype: Optional[torch.dtype], key: str = ""):
     """Copy of a param/LoRA tree for the hot path: matmul operands
     (``kernel``, ``a``, ``b``) cast to ``dtype``, everything else as is,
-    stacked ``blocks`` unstacked into per-layer lists."""
+    stacked ``blocks`` unstacked into per-layer lists. LoRA ``a`` (in, r) is
+    held as the transposed view of a contiguous (r, in) tensor, the layout
+    ``lora_matmul``'s kernel reads."""
     if isinstance(tree, dict):
         out = {k: _serving_tree(v, dtype, k) for k, v in tree.items()}
         if "blocks" in out:
             out["blocks"] = unstack_blocks(out["blocks"])
         return out
     if dtype is not None and key in ("kernel", "a", "b"):
-        return tree.to(dtype)
+        tree = tree.to(dtype)
+    if key == "a":
+        tree = tree.transpose(-1, -2).contiguous().transpose(-1, -2)
     return tree
+
+
+def _group_attention(params, lora, dtype: Optional[torch.dtype]) -> None:
+    """In the serving copy: give every attention layer whose q, k and v carry
+    adapters of one rank its grouped operands (``lora[...]["attn"]["qkv"]``,
+    ``nn.layers.group_qkv``) and make its q/k/v kernels column views of the
+    grouped W, so the grouped copy takes their place."""
+    for tower, tree in lora.items():
+        for p_layer, l_layer in zip(params[tower]["blocks"], tree.get("blocks", [])):
+            group = group_qkv(p_layer["attn"], l_layer.get("attn"), dtype)
+            if group is None:
+                continue
+            l_layer["attn"]["qkv"] = group
+            D = group["kernel"].shape[1] // 3
+            for i, n in enumerate(QKV):
+                p_layer["attn"][n] = {**p_layer["attn"][n], "kernel": group["kernel"][:, i * D:(i + 1) * D]}
 
 
 class ClipEncoder:
@@ -155,8 +177,11 @@ class ClipEncoder:
 
     def _serving_state(self):
         if self._serving is None:
+            params = _serving_tree(self.params, self.compute_dtype)
             lora = None if self.lora is None else _serving_tree(self.lora, self.compute_dtype)
-            self._serving = (_serving_tree(self.params, self.compute_dtype), lora)
+            if lora is not None:
+                _group_attention(params, lora, self.compute_dtype)
+            self._serving = (params, lora)
         return self._serving
 
     # -- batched encode (bucketed shapes) ----------------------------------------

@@ -7,7 +7,9 @@ in every matmul; under a bf16 ``compute_dtype`` the matmul output and the
 bias/LoRA adds are bf16. LoRA adapters are ``{"a": (in, r), "b": (r, out)}``.
 
 Kernel dispatch follows the same switches as the JAX package:
-``fused_lora`` sends each adapted projection through ``ops.lora_matmul``;
+``fused_lora`` sends each adapted projection through ``ops.lora_matmul``
+(an attention layer's q, k and v as one launch where the grouped operands of
+``group_qkv`` are present);
 ``small_attention`` sends S <= ``SMALL_ATTN_MAX_SEQ`` (or causal
 S <= ``SMALL_ATTN_CAUSAL_MAX_SEQ``) through ``ops.attention_small``;
 ``flash_attention`` sends the other sequences through
@@ -174,6 +176,40 @@ def _lora_get(block: Optional[Params], name: str) -> Optional[Params]:
     return None if block is None else block.get(name)
 
 
+QKV = ("q_proj", "k_proj", "v_proj")
+
+
+def group_qkv(p: Params, lora: Optional[Params], dtype: Optional[torch.dtype] = None) -> Optional[Params]:
+    """The operands that run one attention layer's q, k and v projections as
+    one ``lora_matmul`` launch with ``groups=3``: ``kernel`` [Wq | Wk | Wv]
+    (D, 3D), ``a`` [Aq | Ak | Av] (D, 3r, the transposed view of a
+    contiguous (3r, D) tensor, the kernel's layout), ``b``
+    blockdiag(Bq, Bk, Bv) (3r, 3D; the zero blocks add exact zeros) and
+    ``bias`` (3, 1, D) or None, the bias in ``dtype`` when given. None unless
+    all three projections carry an adapter, the three ranks agree and the
+    grouped rank 3r is one the kernel takes (``lora_matmul.R_MAX``)."""
+    from clip_lora_match_tpu_torch.ops.lora_matmul import R_MAX
+
+    if lora is None or any(lora.get(n) is None for n in QKV):
+        return None
+    ranks = {lora[n]["a"].shape[-1] for n in QKV}
+    if len(ranks) != 1 or 3 * min(ranks) > R_MAX:
+        return None
+    r = ranks.pop()
+    w = torch.cat([p[n]["kernel"] for n in QKV], dim=1)
+    D = w.shape[1] // 3
+    a = torch.cat([lora[n]["a"] for n in QKV], dim=1).t().contiguous().t()
+    b = torch.zeros((3 * r, 3 * D), dtype=lora["q_proj"]["b"].dtype, device=w.device)
+    for i, n in enumerate(QKV):
+        b[i * r:(i + 1) * r, i * D:(i + 1) * D] = lora[n]["b"]
+    biases = [p[n].get("bias") for n in QKV]
+    bias = None
+    if any(t is not None for t in biases):
+        bias = torch.stack([torch.zeros(D, device=w.device) if t is None else t.float() for t in biases])
+        bias = bias[:, None, :].to(dtype or torch.float32)
+    return {"kernel": w, "a": a, "b": b, "bias": bias}
+
+
 def attention(
     p: Params,
     x: torch.Tensor,
@@ -192,24 +228,36 @@ def attention(
     ``uses_small_attention`` holds. Without an adapter (or with
     ``fused_lora`` off) q/k/v run as one fused (D, 3D) matmul and the LoRA
     deltas are added per projection; with an adapter and ``fused_lora`` on,
-    each projection runs ``lora_matmul``.
+    q/k/v run as one ``lora_matmul`` on the grouped operands
+    ``lora["qkv"]`` (``group_qkv``; the encoder's serving copy builds them)
+    where present, else each projection runs ``lora_matmul``.
     """
     B, S, D = x.shape
     H = num_heads
     hd = D // H
     kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype)
-    names = ("q_proj", "k_proj", "v_proj")
     xc = x if compute_dtype is None else x.to(compute_dtype)
-    if lora is not None and _kernel_on("fused_lora", x):
+    group = _lora_get(lora, "qkv")
+    if group is not None and _kernel_on("fused_lora", x):
+        from clip_lora_match_tpu_torch.ops.lora_matmul import lora_matmul
+
+        qkv = lora_matmul(
+            xc.reshape(-1, D), group["kernel"], group["a"], group["b"],
+            scaling=float(lora_scaling), groups=3,
+        )
+        if group["bias"] is not None:
+            qkv = qkv + group["bias"].to(qkv.dtype)
+        q, k, v = qkv.to(x.dtype).unbind(0)
+    elif lora is not None and _kernel_on("fused_lora", x):
         # x is cast once for the three projections
-        q, k, v = (linear(p[n], xc, _lora_get(lora, n), **kw).to(x.dtype) for n in names)
+        q, k, v = (linear(p[n], xc, _lora_get(lora, n), **kw).to(x.dtype) for n in QKV)
     else:
         acc_dtype = torch.float32 if compute_dtype is None else compute_dtype
-        w_qkv = torch.cat([p[n]["kernel"] for n in names], dim=1)
+        w_qkv = group["kernel"] if group is not None else torch.cat([p[n]["kernel"] for n in QKV], dim=1)
         if compute_dtype is not None:
             w_qkv = w_qkv.to(compute_dtype)
         qkv = torch.matmul(xc, w_qkv).to(acc_dtype)
-        biases = [p[n].get("bias") for n in names]
+        biases = [p[n].get("bias") for n in QKV]
         if any(b is not None for b in biases):
             parts = [
                 b if b is not None else torch.zeros(D, device=x.device) for b in biases
@@ -217,7 +265,7 @@ def attention(
             qkv = qkv + torch.cat(parts).to(qkv.dtype)
         q, k, v = qkv.split(D, dim=-1)
         out = []
-        for name, t in zip(names, (q, k, v)):
+        for name, t in zip(QKV, (q, k, v)):
             lp = _lora_get(lora, name)
             if lp is not None:
                 t = t + _lora_delta(xc, lp, lora_scaling).to(qkv.dtype)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``build/torch_kernels/<name>-<hash>.so`` at the root of the checkout (the hash
-covers the source and the flags, so an edit rebuilds) and loaded with
+covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edit rebuilds) and loaded with
 ``ctypes``. ``build_all`` starts one ``nvcc`` per source at once, so the
 build costs the slowest file, not their sum. Nothing here runs at import.
 """
@@ -49,8 +50,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the hash covers the headers too: an edit to a shared .cuh rebuilds its users
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    h = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 

@@ -2,7 +2,8 @@
 
 Port of ``clip_lora_match_tpu/ops/flash_attention.py``. q, k, v are
 (B, S, H, d) in the projection layout, untransposed; d must be 64 for the
-kernel. All arithmetic is fp32 whatever the input dtype (P is never rounded),
+kernel. All arithmetic is at fp32 accuracy whatever the input dtype (the
+kernel runs both products on the tensor cores as 3xTF32; P is never rounded),
 with an optional additive fp32 mask broadcastable to (B, 1, S, S); the output
 has q's dtype. The kernel is ``csrc/flash_attention.cu``.
 """
@@ -58,7 +59,10 @@ def _launch(q, k, v, mask, scale: float) -> torch.Tensor:
     for t in (k, v):
         if t.shape != q.shape or t.device != q.device:
             raise ValueError("flash_attention: q, k, v must share shape and device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # contiguous and 16-byte aligned (the kernel's cp.async rows): a view that
+    # starts inside its storage is copied
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     mask_ptr, mask_bstride = None, 0
     if mask is not None:
         mask = mask.to(device=q.device, dtype=torch.float32)

@@ -8,12 +8,16 @@ and per-batch additive masks, index sizes that are no multiple of a tile or
 a block, rows declared invalid, D = 1024 for the int8 index, small attention
 at every S from 1 to 128 that straddles a 16-row tile under every mask mode
 (fully masked and zero-length rows included) and on an unaligned view, flash
-attention from S = 65 to 577 under every mask kind, the fused MLP from one
-row to a 32-image batch at every CLIP width through the wgmma body, every
-hidden split count, bit-equal reruns, ragged and unaligned inputs through the
-WMMA body (each test checks the body the wrapper's plan picks), and the
-wrappers' refusals. Each
-kernel test asserts that the wrapper's launch counter moved.
+attention from S = 1 to 577 under every mask kind at the phase-2 shapes in
+both types (3xTF32 for fp32), the fused MLP from one row to a 32-image batch
+at every CLIP width through the wgmma body, every hidden split count,
+bit-equal reruns, ragged and unaligned inputs through the WMMA body (each
+test checks the body the wrapper's plan picks), the LoRA matmul's grouped
+q/k/v launch from one row to a 96-image batch (its (3, M, N) slabs against
+per-projection launches), every tile, every rank up to R_MAX through both
+bf16 bodies, the attention layer's grouping only up to R_MAX, and the
+wrappers' refusals. Each kernel test
+asserts that the wrapper's launch counter moved.
 """
 
 import pytest
@@ -160,20 +164,143 @@ def test_lora_matmul_kernel(gen, M, K, N, r, dtype):
     assert (got.float() - ref.float()).abs().max().item() <= tol * scale
 
 
-def test_lora_matmul_kernel_on_an_unaligned_view(gen):
-    # a contiguous view that starts one element into its storage: the bf16
-    # tile loads must not assume 16-byte alignment of the base pointer
-    M, K, N, r = 70, 64, 64, 8
+@pytest.mark.parametrize("groups", [1, 3])
+def test_lora_matmul_kernel_on_an_unaligned_view(gen, groups):
+    # a contiguous view that starts one element into its storage: no TMA, the
+    # WMMA body takes it, and its tile loads must not assume 16-byte alignment
+    M, K, N, r = 70, 64, 64 * groups, 8
     bf = torch.bfloat16
     x = _rand(gen, M * K + 1, dtype=bf)[1:].view(M, K)
     w = _rand(gen, K, N, dtype=bf, scale=K ** -0.5)
     a = _rand(gen, K, r, dtype=bf, scale=K ** -0.5)
     b = _rand(gen, r, N, dtype=bf, scale=0.1)
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
-    got = L.lora_matmul(x, w, a, b, 2.0)
-    ref = L.lora_matmul_plain(x, w, a, b, 2.0)
+    assert L.plan(M, N, K, r, bf, False, _build.sm_count(x.device), groups).body == "wmma"
+    got = L.lora_matmul(x, w, a, b, 2.0, groups=groups)
+    ref = L.lora_matmul_plain(x, w, a, b, 2.0, groups=groups)
     torch.cuda.synchronize()
+    assert got.shape == ref.shape
     assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+
+
+def _lora_group(gen, K, N, r, dtype=torch.bfloat16):
+    """Three projections' operands and their grouped form, as the serving copy
+    builds it (A held as the transposed view of a contiguous (r, K) tensor)."""
+    from clip_lora_match_tpu_torch.nn.layers import QKV, group_qkv
+
+    per = [(_rand(gen, K, N, dtype=dtype, scale=K ** -0.5),
+            _rand(gen, r, K, dtype=dtype, scale=K ** -0.5).t(),
+            _rand(gen, r, N, dtype=dtype, scale=0.1)) for _ in QKV]
+    g = group_qkv({n: {"kernel": t[0]} for n, t in zip(QKV, per)},
+                  {n: {"a": t[1], "b": t[2]} for n, t in zip(QKV, per)})
+    return per, (g["kernel"], g["a"], g["b"])
+
+
+def _assert_lora_close(got, ref):
+    # bf16: one bf16 step of the output, or of a rank-r partial that rounds the other way
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * (ref.float().abs().max().item() + 1e-6), f"max err {err}"
+
+
+@pytest.mark.parametrize("KN", [768, 512, 1024], ids=["B32_image_L14_text", "B32_text", "L14_image"])
+@pytest.mark.parametrize("M", [1, 50, 64, 577, 4_800])
+def test_lora_matmul_grouped_qkv(gen, M, KN):
+    # one launch for q, k and v: (3, M, N) out, each slab the projection's own
+    # product (against its own launch too), through the wgmma body
+    per, (w, a, b) = _lora_group(gen, KN, KN, 8)
+    x = _rand(gen, M, KN, dtype=torch.bfloat16)
+    assert L.plan(M, 3 * KN, KN, 24, torch.bfloat16, True, _build.sm_count(x.device), 3).body == "wgmma"
+    before = L.lora_matmul.launches
+    got = L.lora_matmul(x, w, a, b, 2.0, groups=3)
+    assert L.lora_matmul.launches == before + 1
+    assert got.shape == (3, M, KN) and got.is_contiguous()
+    _assert_lora_close(got, L.lora_matmul_plain(x, w, a, b, 2.0, groups=3))
+    for i, (wi, ai, bi) in enumerate(per):
+        _assert_lora_close(got[i], L.lora_matmul(x, wi, ai, bi, 2.0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("M,K,N,groups", [(64, 768, 2304, 3), (50, 1024, 1024, 1), (7, 512, 1536, 3)])
+def test_lora_matmul_every_split_and_tile(gen, M, K, N, groups):
+    # each tile shape the plan can give (K is not split): held to the plain
+    # version and run twice bit-equal
+    from clip_lora_match_tpu_torch.ops.lora_matmul import Plan
+
+    r = 8 * groups
+    x = _rand(gen, M, K, dtype=torch.bfloat16)
+    if groups == 3:
+        _, (w, a, b) = _lora_group(gen, K, N // 3, 8)
+    else:
+        w = _rand(gen, K, N, dtype=torch.bfloat16, scale=K ** -0.5)
+        a = _rand(gen, r, K, dtype=torch.bfloat16, scale=K ** -0.5).t()
+        b = _rand(gen, r, N, dtype=torch.bfloat16, scale=0.1)
+    ref = L.lora_matmul_plain(x, w, a, b, 2.0, groups=groups)
+    plans = [Plan("wgmma", bm, bn) for bm, bn in L._TILES]
+    at = a.t().contiguous()
+    for p in plans:
+        got = L._run(x, w, at, b, 2.0, groups, p)
+        again = L._run(x, w, at, b, 2.0, groups, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"{p}: two runs differ"
+        _assert_lora_close(got if groups > 1 else got.view(M, N), ref)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("r", [1, 8, 16, 17, 24, 33, 48, 64])
+def test_lora_matmul_every_rank_up_to_r_max(gen, r, aligned):
+    M, K, N = 100, 512, 384
+    bf = torch.bfloat16
+    x = _rand(gen, M, K, dtype=bf)
+    if not aligned:
+        x = _rand(gen, M * K + 1, dtype=bf)[1:].view(M, K)
+    w = _rand(gen, K, N, dtype=bf, scale=K ** -0.5)
+    a = _rand(gen, K, r, dtype=bf, scale=K ** -0.5)
+    b = _rand(gen, r, N, dtype=bf, scale=0.1)
+    assert r <= L.R_MAX
+    body = L.plan(M, N, K, r, bf, aligned, _build.sm_count(x.device)).body
+    assert body == ("wgmma" if aligned else "wmma")
+    _assert_lora_close(L.lora_matmul(x, w, a, b, 2.0), L.lora_matmul_plain(x, w, a, b, 2.0))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        L.lora_matmul(x, w, _rand(gen, K, L.R_MAX + 1, dtype=bf), _rand(gen, L.R_MAX + 1, N, dtype=bf))
+
+
+@pytest.mark.parametrize("M,KN", [(50, 768), (577, 1024)])
+def test_lora_matmul_grouped_is_bit_equal_across_runs(gen, M, KN):
+    # no atomics, one block per output tile: the same bits each run
+    _, (w, a, b) = _lora_group(gen, KN, KN, 8)
+    x = _rand(gen, M, KN, dtype=torch.bfloat16)
+    first = L.lora_matmul(x, w, a, b, 2.0, groups=3)
+    for _ in range(2):
+        assert torch.equal(L.lora_matmul(x, w, a, b, 2.0, groups=3), first)
+
+
+@pytest.mark.parametrize("r", [8, 21, 22, 32])
+def test_attention_groups_qkv_only_up_to_r_max(gen, r):
+    # q/k/v group while 3r fits under R_MAX (2 launches: q/k/v, out_proj);
+    # past it each projection launches on its own (4), against the plain path
+    from clip_lora_match_tpu_torch.nn import layers as T
+
+    D, H, bf = 128, 2, torch.bfloat16
+    names = T.QKV + ("out_proj",)
+    p = {n: {"kernel": _rand(gen, D, D, dtype=bf, scale=D ** -0.5),
+             "bias": _rand(gen, D, dtype=bf, scale=0.1)} for n in names}
+    lora = {n: {"a": _rand(gen, D, r, dtype=bf, scale=D ** -0.5),
+                "b": _rand(gen, r, D, dtype=bf, scale=0.1)} for n in names}
+    group = T.group_qkv(p, lora, bf)
+    grouped = 3 * r <= L.R_MAX
+    assert (group is not None) == grouped
+    x = _rand(gen, 2, 50, D, dtype=bf)
+    with T.kernel_flags(fused_lora="auto", small_attention=False, flash_attention=False):
+        before = L.lora_matmul.launches
+        got = T.attention(p, x, H, lora={**lora, "qkv": group} if grouped else lora, lora_scaling=2.0)
+        assert L.lora_matmul.launches - before == (2 if grouped else 4)
+    with T.kernel_flags(fused_lora=False):
+        ref = T.attention(p, x, H, lora=lora, lora_scaling=2.0)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert got.shape == ref.shape and err <= 2e-2 * ref.float().abs().max().item(), f"max err {err}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -254,8 +381,8 @@ def test_a_cpu_encoder_leaves_the_card_encoders_kernels_on(gen):
         enc.attach_lora(init_lora(1, arch, lcfg, device=dev), lcfg.scaling)
         encs[dev] = enc
     pix = np.zeros((1, 64, 64, 3), np.float32)
-    per_pair = {  # 2 towers x 2 layers; flash and the fused MLP are off by default
-        "attention_small": 4, "lora_matmul": 16, "topk_retrieve": 0,
+    per_pair = {  # 2 towers x 2 layers (grouped q/k/v + out_proj); flash and the fused MLP are off by default
+        "attention_small": 4, "lora_matmul": 8, "topk_retrieve": 0,
         "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
         "mlp_fused": 0, "flash_attention": 0,
     }
@@ -438,6 +565,54 @@ def test_flash_attention_kernel(gen, B, S, H, mask, dtype):
         torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
     else:  # one bf16 step of the output
         torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,mask",
+    [(1, 577, 16, "none"), (32, 577, 16, "none"), (1, 197, 12, "none"), (1, 257, 16, "none"),
+     (1, 77, 12, "causal"), (2, 1, 2, "none"), (2, 63, 2, "per_batch"), (2, 64, 2, "per_batch"),
+     (2, 65, 2, "causal"), (3, 129, 2, "per_batch")],
+)
+def test_flash_attention_kernel_at_main_path_and_ragged_shapes(gen, B, S, H, mask, dtype):
+    # the phase-2 shapes of chip_smoke.py in both types, and ragged S with a
+    # fully masked query row (per_batch: batch row B-1, query 5 or the last)
+    q, k, v = (_rand(gen, B, S, H, 64, dtype=dtype) for _ in range(3))
+    m = _flash_mask(mask, B, S) if mask != "per_batch" or S > 5 else None
+    if mask == "per_batch" and S <= 5:
+        m = torch.zeros(B, 1, S, S, device="cuda")
+        m[-1, 0, S - 1, :] = NEG
+    got = F.flash_attention(q, k, v, mask=m)
+    ref = F.flash_attention_plain(q, k, v, mask=m)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:  # 3xTF32 and summation order
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+    else:  # one bf16 step of the output
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_scale_that_is_no_power_of_two(gen, dtype):
+    # bf16 q times a scale off a power of two is not exact in TF32: q is split too
+    q, k, v = (_rand(gen, 2, 145, 3, 64, dtype=dtype) for _ in range(3))
+    got = F.flash_attention(q, k, v, scale=0.1)
+    ref = F.flash_attention_plain(q, k, v, scale=0.1)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=1e-2)
+
+
+def test_flash_attention_on_an_unaligned_view(gen):
+    B, S, H = 1, 100, 2
+    n = B * S * H * 64
+    q = _rand(gen, n + 1)[1:].view(B, S, H, 64)
+    k, v = (_rand(gen, B, S, H, 64) for _ in range(2))
+    assert q.data_ptr() % 16 != 0
+    got = F.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, F.flash_attention_plain(q, k, v), atol=2e-5, rtol=1e-4)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(gen):
