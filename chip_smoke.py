@@ -2,6 +2,7 @@
 """Drive the PyTorch port's seeker and finder paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only topk_retrieve   # build and check one kernel (phase 2 only)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -9,7 +10,8 @@ Phases (any failure raises and exits non-zero):
    source, all at once) into build/torch_kernels/;
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it (lora_matmul per projection and as the grouped
-   q/k/v launch, with the body and tiles its plan picks), with kernel / plain
+   q/k/v launch, with the body and tiles its plan picks; topk_retrieve at
+   Q = 1 and 64, k = 5 and 64, with the body that ran), with kernel / plain
    / library times (wall per call between CUDA events, and the kernel's and
    the library's device time from torch.profiler) and the bound (fp32 flash
    at the 3xTF32 rate its kernel computes at)
@@ -17,7 +19,9 @@ Phases (any failure raises and exits non-zero):
    the two-pass routes through them against the plain route);
 3. the main path at full ViT-B/32 width with a seeded r=8, alpha=16 LoRA:
    text, image and fused SeekerService.search_items requests over a
-   44,446-row fp32 index, self-retrieval checks, launch-count checks (two
+   44,446-row fp32 index, self-retrieval checks, a k=300 search through
+   SearchIndex (past the kernel's k <= 256: the exact mid-band route) held
+   against the plain route, launch-count checks (two
    lora_matmul launches per adapted attention layer: q/k/v grouped, out), a
    96-image / 256-text batch held against the plain fp32 path, request
    latency, host preprocessing time, batch throughput, and device time by
@@ -91,6 +95,10 @@ L14_INDEX_ROWS = 44_436  # phase 5: seeded unit rows at D=768; +5 texts +5 image
 # product with A contiguous. Otherwise q/k/v are one launch, out_proj another.
 UNGROUPED = os.environ.get("SMOKE_UNGROUPED_LORA") == "1"
 LORA_PER_LAYER = 4 if UNGROUPED else 2
+# SMOKE_SKIP_K300=1 runs this script in a checkout from before k > 256 took
+# the mid-band route on the card (an A/B against it): phase 3 leaves out its
+# k=300 search, which such a checkout refuses.
+SKIP_K300 = os.environ.get("SMOKE_SKIP_K300") == "1"
 
 
 def log(*parts) -> None:
@@ -259,9 +267,14 @@ def check_lora(torch, ops_lora, gen):
 
 
 def check_topk(torch, ops_topk, gen):
+    """topk_retrieve against its plain version at the main path's N and D, at
+    the seeker's Q=1 and search_batch's Q=64, k=5 and 64, both index types.
+    Each row names the pass-1 body that ran (the wrapper's ``bodies`` count)
+    and the plan's query tile and grid."""
     rows = []
     worst = 0.0
     N, D = 44_441, 512
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     base = torch.nn.functional.normalize(
         torch.randn(N, D, device="cuda", generator=gen), dim=1
     )
@@ -270,6 +283,7 @@ def check_topk(torch, ops_topk, gen):
         for Q in (1, 64):
             queries = torch.randn(Q, D, device="cuda", generator=gen)
             for k in (5, 64):
+                before = dict(getattr(ops_topk.topk_retrieve, "bodies", {}))
                 s, i = ops_topk.topk_retrieve(queries, index, k)
                 rs, ri = ops_topk.topk_retrieve_plain(queries, index, k)
                 torch.cuda.synchronize()
@@ -278,20 +292,21 @@ def check_topk(torch, ops_topk, gen):
                     raise AssertionError(f"topk_retrieve Q={Q} k={k} {kind}: score err {err}")
                 # ids must agree wherever the plain scores are distinct: a
                 # swap is allowed only between positions within 1e-5 of a tie
-                diff = (i != ri)
-                if diff.any():
-                    gap = torch.minimum(
-                        torch.nn.functional.pad((rs[:, :-1] - rs[:, 1:]), (0, 1), value=1.0),
-                        torch.nn.functional.pad((rs[:, :-1] - rs[:, 1:]), (1, 0), value=1.0),
-                    )
-                    if (gap[diff] > 1e-5).any():
-                        raise AssertionError(f"topk_retrieve Q={Q} k={k} {kind}: ids differ")
+                assert_ids_tie_aware(torch, f"topk_retrieve Q={Q} k={k} {kind}", i, rs, ri, 1e-5)
                 worst = max(worst, err)
+                ran = [b for b, n in getattr(ops_topk.topk_retrieve, "bodies", {}).items()
+                       if n != before.get(b, 0)]
+                what = f"Q={Q} N={N} D={D} k={k} {kind} index"
+                if hasattr(ops_topk, "plan"):  # the body and tiles this shape runs
+                    p = ops_topk.plan(Q, N, D, k, dtype, index.data_ptr() % 16 == 0, sms)
+                    if ran != [p.body]:
+                        raise AssertionError(f"topk_retrieve {what}: bodies {ran}, plan {p.body}")
+                    what += f" [{p.body} qt={p.qt} grid={p.grid[0]}x{p.grid[1]}]"
                 qn = torch.nn.functional.normalize(queries, dim=1).to(dtype)
                 nbytes = N * D * index.element_size() + Q * D * 4 + Q * k * 8
-                b_ms, b_by = bound_ms(nbytes, 2 * Q * N * D, kind)
+                b_ms, b_by = bound_ms(nbytes, 2 * Q * N * D, "fp32")
                 rows.append(dict(
-                    shape=f"Q={Q} N={N} D={D} k={k} {kind} index",
+                    shape=what,
                     **timings(torch, lambda: ops_topk.topk_retrieve(queries, index, k),
                               lambda: ops_topk.topk_retrieve_plain(queries, index, k),
                               lambda: torch.topk(qn @ index.T, k)),
@@ -538,6 +553,27 @@ def profile_device_time(torch, name: str, fn, wall_ms: float, card: str) -> None
         log(f"  {ms:9.4f} ms  x{count:<4d} {key[:90]}")
 
 
+def check_k300(torch, index, enc, text):
+    """k past the streaming kernel's K_MAX through SearchIndex (the exact
+    mid-band route on the card), held against the plain route."""
+    from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+    from clip_lora_match_tpu_torch.retrieval.search import SearchIndex
+
+    q = enc.encode_text(text)
+    res = SearchIndex(index, enc).search_with_embedding(q, 300)
+    if len(res) != 300:
+        raise AssertionError(f"k=300 search: {len(res)} results")
+    rs, ri = R.topk_retrieve_plain(torch.from_numpy(q)[None].cuda(), index.embeddings, 300)
+    got_s = torch.tensor([[r.score for r in res]], device="cuda")
+    got_i = torch.tensor([[r.index for r in res]], device="cuda", dtype=torch.int32)
+    err = (got_s - rs).abs().max().item()
+    if not err <= 1e-5:
+        raise AssertionError(f"k=300 search: score err {err}")
+    assert_ids_tie_aware(torch, "k=300 search", got_i, rs, ri, 1e-5)
+    log(f"k=300 search through SearchIndex over {len(index)} rows: 300 results, "
+        f"max score err {err:.3e} against the plain route")
+
+
 def main_path(torch, card: str):
     from PIL import Image
 
@@ -628,6 +664,11 @@ def main_path(torch, card: str):
     log("self-retrieval: text and image queries return their own rows first "
         f"(min score {min(min(r[0].score for r in text_res), min(r[0].score for r in image_res)):.6f}); "
         "fused queries hold both rows in their top 5")
+
+    if SKIP_K300:
+        log("k=300 search left out (SMOKE_SKIP_K300=1)")
+    else:
+        check_k300(torch, index, enc, texts[0])
 
     # -- request latency -----------------------------------------------------
     lat = {}
@@ -1105,8 +1146,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # --only topk_retrieve[,...]: build those kernels' sources and run only
+    # their phase-2 checks (a kernel's development loop; the run prints the
+    # rows and the card, and no result line)
+    only = sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv else None
     t = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(sorted({KERNELS[n][0] for n in only}) if only else _build.KERNEL_SOURCES)
     log(f"kernel build: {time.perf_counter() - t:.2f} s ({len(logs)} sources in parallel)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1120,10 +1165,12 @@ def main() -> int:
         ("lora_matmul", check_lora, ops_lora),
         ("topk_retrieve", check_topk, ops_topk),
     ):
-        results[name] = fn(torch, mod, gen)
-    results.update(check_pass1(torch, ops_topk, gen))
-    results["mlp_fused"] = check_mlp_fused(torch, ops_mlp, gen)
-    results["flash_attention"] = check_flash(torch, ops_flash, gen)
+        if only is None or name in only:
+            results[name] = fn(torch, mod, gen)
+    if only is None:
+        results.update(check_pass1(torch, ops_topk, gen))
+        results["mlp_fused"] = check_mlp_fused(torch, ops_mlp, gen)
+        results["flash_attention"] = check_flash(torch, ops_flash, gen)
     torch.cuda.empty_cache()
     fmt = lambda v: "null" if v is None else f"{v:.5f}"  # noqa: E731
     for name, (rows, _) in results.items():
@@ -1132,6 +1179,9 @@ def main() -> int:
                 f"plain_ms {row['plain_ms']:.5f} library_ms {fmt(row['library_ms'])} "
                 f"library_device_ms {fmt(row['library_device_ms'])} bound_ms {row['bound_ms']:.5f} "
                 f"({row['bound_by']}) max_abs_err {row['max_abs_err']:.3e} [{card}]")
+    if only is not None:
+        log(card)
+        return 0
 
     counts, (enc, texts, images, paths) = main_path(torch, card)
     hbm = hbm_path(torch, card, enc, texts, images, paths)

@@ -110,6 +110,14 @@ class ClipConfig:
     tokenizer_dir: Optional[str] = None
     # dispatch the hand-written CUDA kernels inside the towers on CUDA
     use_pallas_kernels: bool = True
+    # serving quantization of the transformer-block linears: "none" or "int8"
+    # (W8A8). Read as the JAX package reads it; the port has no W8A8 path yet,
+    # so ClipEncoder refuses anything but "none".
+    quantize: str = "none"
+    # the JAX package's persistent XLA compilation cache directory. Read and
+    # kept so that one YAML serves both packages; it has no effect in PyTorch,
+    # which compiles no graphs (the CUDA kernels' build cache is build/).
+    compilation_cache_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.arch is None:
@@ -164,6 +172,8 @@ def load_clip_config(path: Optional[str] = None) -> ClipConfig:
         preprocess=preprocess,
         tokenizer_dir=model.get("tokenizer_dir"),
         use_pallas_kernels=model.get("use_pallas_kernels", True),
+        quantize=model.get("quantize", "none"),
+        compilation_cache_dir=model.get("compilation_cache_dir"),
         arch=_arch_from_yaml(model),
     )
 

@@ -4,7 +4,8 @@
 Rows live in a device arena (fp32, or bf16 to halve its bytes) that grows
 geometrically, so an append is an O(1) row write. Rows are L2-normalized on
 the way in. Disk format: ``.npz`` (``embeddings``) + ``.json`` sidecar
-(``image_paths``, ``texts``), the JAX package's native format; the int8
+(``image_paths``, ``texts``), the JAX package's native format, or the
+reference's legacy ``.pt`` torch dict (chosen by the suffix); the int8
 index's artifact (``save_index_q8`` / ``load_index_q8``) is the JAX package's
 too.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import pickle
 import threading
 import warnings
 from typing import Optional, Sequence
@@ -125,23 +127,52 @@ class EmbeddingIndex:
 
     # -- persistence -------------------------------------------------------------
 
-    def save(self, path: str) -> None:
-        """Write ``.npz`` (embeddings, fp32) + ``.json`` sidecar."""
+    def _snapshot(self) -> tuple[np.ndarray, list, list]:
+        """(embeddings fp32, image_paths, texts) read under one lock, so a
+        concurrent append cannot skew the metadata against the rows."""
         with self.lock:
-            emb = self.embeddings.float().cpu().numpy()
-            image_paths, texts = list(self.image_paths), list(self.texts)
+            return (self.embeddings.float().cpu().numpy(), list(self.image_paths),
+                    list(self.texts))
+
+    def save(self, path: str) -> None:
+        """Write ``.npz`` (embeddings, fp32) + ``.json`` sidecar, or, for a
+        ``.pt`` path, the reference's legacy torch dict."""
+        if path.endswith(".pt"):
+            self._save_pt(path)
+            return
+        emb, image_paths, texts = self._snapshot()
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         np.savez(path, embeddings=emb)
         side = path[:-4] if path.endswith(".npz") else path
         with open(side + ".json", "w") as f:
             json.dump({"image_paths": image_paths, "texts": texts}, f, ensure_ascii=False)
 
+    def _save_pt(self, path: str) -> None:
+        """The legacy dict with plural keys: ``embeddings`` a CPU fp32 tensor,
+        ``image_paths`` and ``texts`` lists (the JAX package's layout)."""
+        emb, image_paths, texts = self._snapshot()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        torch.save(
+            # a copy: a CPU index's rows are a view of its arena, and torch.save
+            # writes a view's whole storage
+            {"embeddings": torch.from_numpy(emb.copy()), "image_paths": image_paths,
+             "texts": texts},
+            path,
+        )
+
     @classmethod
     def load(
         cls, path: str, dim: int = 512, device: str | torch.device = "cuda",
         storage_dtype: str = "float32",
     ) -> "EmbeddingIndex":
-        """Load ``.npz`` (+ ``.json``); a missing file gives an empty index."""
+        """Load ``.npz`` (+ ``.json``) or a legacy ``.pt`` dict; a missing
+        file gives an empty index."""
+        if path.endswith(".pt"):
+            if not os.path.exists(path):
+                log.info("index %s not found; starting empty", path)
+                return cls(dim=dim, device=device, storage_dtype=storage_dtype)
+            emb, image_paths, texts = _load_pt(path)
+            return cls(emb, image_paths, texts, device=device, storage_dtype=storage_dtype)
         npz = path if path.endswith(".npz") else path + ".npz"
         if not os.path.exists(npz):
             log.info("index %s not found; starting empty", npz)
@@ -156,6 +187,24 @@ class EmbeddingIndex:
             image_paths = meta.get("image_paths", meta.get("image_path", []))
             texts = meta.get("texts", meta.get("text", []))
         return cls(emb, image_paths, texts, device=device, storage_dtype=storage_dtype)
+
+
+def _load_pt(path: str) -> tuple[np.ndarray, list, list]:
+    """(embeddings, image_paths, texts) of a legacy torch dict, key-tolerant
+    (``image_paths``/``image_path``, ``texts``/``text``). Loaded with
+    ``weights_only=True``: a dict of a tensor and string lists needs no
+    arbitrary pickle."""
+    try:
+        data = torch.load(path, map_location="cpu", weights_only=True)
+    except (RuntimeError, pickle.UnpicklingError, EOFError) as e:
+        raise ValueError(f"unrecognized index file {path}: {e}") from e
+    if not isinstance(data, dict) or "embeddings" not in data:
+        raise ValueError(f"unrecognized index file {path}")
+    emb = data["embeddings"]
+    emb = emb.float().numpy() if isinstance(emb, torch.Tensor) else np.asarray(emb, np.float32)
+    image_paths = data.get("image_paths", data.get("image_path", []))
+    texts = data.get("texts", data.get("text", []))
+    return emb, list(image_paths), list(texts)
 
 
 # -- quantized-index persistence -------------------------------------------------

@@ -96,6 +96,7 @@ class ClipEncoder:
     ):
         self.device = resolve_device(device)
         self.cfg = config or ClipConfig()
+        _refuse_quantize(self.cfg)
         self.arch = arch or self.cfg.arch
         on_cuda = self.device.type == "cuda"
         # explicit compute dtype wins; else the config's compute dtype on
@@ -128,6 +129,7 @@ class ClipEncoder:
         given and found, else initializes from ``seed`` with a warning; a
         missing LoRA directory warns and keeps the base weights."""
         cfg = load_clip_config(config_path)
+        _refuse_quantize(cfg)  # before the weights are read
         arch = cfg.arch
         dev = resolve_device(device)
         if weights_path and os.path.exists(weights_path):
@@ -261,6 +263,15 @@ class ClipEncoder:
         enc = self.preprocessor.preprocess_text(text)
         out = self.encode_text_batch(enc["input_ids"], enc["attention_mask"], normalize)
         return out[0] if single else out
+
+
+def _refuse_quantize(cfg: ClipConfig) -> None:
+    """W8A8 serving (``model.quantize: int8``) is not ported: refuse it rather
+    than serve float."""
+    if cfg.quantize != "none":
+        raise NotImplementedError(
+            f"model.quantize={cfg.quantize!r}: W8A8 serving is not ported to PyTorch yet"
+        )
 
 
 def load_clip_model(

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (mlp_fused.cu,
-// lora_matmul.cu): mbarriers, TMA loads, cluster addressing, wgmma shared-memory
+// lora_matmul.cu) and the bulk-copy ring of retrieval_topk.cu: mbarriers, TMA
+// and 1-D bulk loads, cluster addressing, wgmma shared-memory
 // descriptors and fences, and the host side that encodes TMA tensor maps.
 // The shape-specific wgmma instructions stay in each kernel's file.
 //
@@ -71,6 +72,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
       "r"(c1), "r"(bar)
+      : "memory");
+}
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global memory into this CTA's shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 // bulk copy of `bytes` of this CTA's shared memory to a peer's (dst and bar are

@@ -14,14 +14,14 @@ keeps the JAX package's size bands.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from clip_lora_match_tpu_torch.ops import _build
 
 K_MAX = 256
-MAX_CHUNKS = 12 * 1024  # the merge pass keeps one int head per 256-row chunk
+D_MAX = 4096
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Band edges of the JAX package's dispatch (ops/retrieval_topk.py there).
@@ -67,6 +67,88 @@ def topk_retrieve_plain(queries, index, k: int = 5):
     return _sorted_topk(sims, k)
 
 
+# -- the streaming kernel's launch plan (csrc/retrieval_topk.cu) ----------------
+
+SMEM_BLOCK = 232_448  # dynamic shared memory one block may take (H100)
+SMEM_SM = 233_472  # shared memory of one SM
+_STAGE_BYTES = 16_384  # rows body: bytes of index rows per bulk copy
+_RING = 4  # rows body: bulk-copy stages
+_TILE_QT, _TILE_KS, _TILE_RT, _TILE_STAGES = 64, 32, 64, 4  # tile body
+_BODIES = {"rows": 0, "plain": 1, "tile": 2}
+
+
+class Plan(NamedTuple):
+    """How one call runs: the pass-1 body (``rows``: whole rows through a
+    bulk-copy ring; ``tile``: 8 queries a warp against 64-row steps
+    through a cp.async ring; ``plain``: scalar loads, for an unaligned
+    index), the query tile of a block, the rows per stage (rows, plain) or
+    per step (tile), the ring's stages, each block's contiguous row range,
+    the grid (row blocks, query tiles) and the shared memory of a pass-1
+    block."""
+
+    body: str
+    qt: int
+    rows: int
+    stages: int
+    rows_per_block: int
+    grid: tuple
+    smem: int
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _rows_smem(qt, D, k, R, S, elem, bulk) -> int:
+    """Shared memory of the rows and plain bodies (``rows_layout`` in the
+    source): the ring, the normalized query tile, two score buffers, the
+    k-lists' scratch, the ring's barriers."""
+    qs = _up(S * R * D * elem, 128) if bulk else 0
+    sc = _up(qs + qt * D * 4, 16)
+    return _up(sc + 2 * qt * R * 4 + 2 * qt * k * 4, 8) + (8 * S if bulk else 0)
+
+
+def _tile_smem(k, elem) -> int:
+    """Shared memory of the tile body (``tile_smem`` in the source): 1/|q| of
+    the tile's queries, their k-lists, then the ring of (query slice, index
+    slice)."""
+    return _up(_TILE_QT * 4, 16) + _TILE_QT * k * 8 + _TILE_STAGES * (
+        _TILE_QT * (_TILE_KS + 4) * 4 + _TILE_RT * (_TILE_KS * elem + 16))
+
+
+def plan(Q: int, N: int, D: int, k: int, dtype, aligned: bool, sms: int) -> Plan:
+    """The launch plan. ``aligned``: the index's base is 16-byte aligned
+    (its row pitch is checked here). Q > 8 takes the tile body (64 queries
+    a block); Q <= 8 the rows body on a query tile of 1, 2, 4 or 8 (the
+    next power of two at or above Q); an index a 16-byte copy cannot take,
+    the plain body on tiles of 8 queries. The grid holds as many row blocks as fit on the
+    card at once (at most 2 per SM), divided among the query tiles, each
+    block an equal contiguous range of rows."""
+    elem = 4 if dtype == torch.float32 else 2
+    bulk = aligned and (D * elem) % 16 == 0
+    if Q > 8 and bulk:
+        return _grid("tile", _TILE_QT, _TILE_RT, _TILE_STAGES, _tile_smem(k, elem), Q, N, sms)
+    qt = 1 << (Q - 1).bit_length() if Q <= 8 and bulk else 8
+    R = max(1, min(32, _STAGE_BYTES // (D * elem)))
+    S = _RING if bulk else 0  # at most 128 KB of queries + 64 KB of ring + 16 KB of lists
+    return _grid("rows" if bulk else "plain", qt, R, S, _rows_smem(qt, D, k, R, S, elem, bulk),
+                 Q, N, sms)
+
+
+def _grid(body, qt, unit, S, smem, Q, N, sms) -> Plan:
+    per_sm = max(1, min(2, SMEM_SM // (smem + 1024)))
+    gy = -(-Q // qt)
+    want = -(-per_sm * sms // gy)
+    rpb = max(unit, -(-N // want))
+    return Plan(body, qt, unit, S, rpb, (-(-N // rpb), gy), smem)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# topk_retrieve_fwd(queries, index, cand_s, cand_i, out_s, out_i, Q, N, D, k,
+#                   index_dtype, body, qt, rows, stages, rows_per_block, grid_x, stream)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+
+
 def _launch(queries, index, k: int):
     Q, D = queries.shape
     N = index.shape[0]
@@ -79,34 +161,34 @@ def _launch(queries, index, k: int):
         )
     if k > K_MAX:
         raise ValueError(f"topk_retrieve kernel: k <= {K_MAX}, got {k}")
-    if D > 4096:
-        raise ValueError(f"topk_retrieve kernel: D <= 4096, got {D}")
-    lib = _build.load("retrieval_topk")
-    chunks = lib.topk_num_chunks(ctypes.c_int(N))
-    if chunks > MAX_CHUNKS:
-        raise ValueError(f"topk_retrieve kernel: N <= {MAX_CHUNKS * 256}, got {N}")
-    q = queries.to(torch.float32).contiguous()
+    if D > D_MAX:
+        raise ValueError(f"topk_retrieve kernel: D <= {D_MAX}, got {D}")
+    q = queries.float().contiguous()
+    if q.data_ptr() % 16:  # the tile body copies query rows in 16-byte chunks
+        q = q.clone()
     index = index.contiguous()
+    p = plan(Q, N, D, k, index.dtype, index.data_ptr() % 16 == 0, _build.sm_count(q.device))
     dev = q.device
-    cand_s = torch.empty((Q, chunks, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((Q, chunks, k), dtype=torch.int32, device=dev)
+    cand_s = torch.empty((Q, p.grid[0], k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((Q, p.grid[0], k), dtype=torch.int32, device=dev)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    rc = lib.topk_retrieve_fwd(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(index.data_ptr()),
-        ctypes.c_void_p(cand_s.data_ptr()), ctypes.c_void_p(cand_i.data_ptr()),
-        ctypes.c_void_p(out_s.data_ptr()), ctypes.c_void_p(out_i.data_ptr()),
-        ctypes.c_int(Q), ctypes.c_int(N), ctypes.c_int(D), ctypes.c_int(k),
-        ctypes.c_int(_DTYPES[index.dtype]), ctypes.c_void_p(_build.stream_ptr(q)),
+    rc = _build.function("retrieval_topk", "topk_retrieve_fwd", _ARGTYPES)(
+        q.data_ptr(), index.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), Q, N, D, k, _DTYPES[index.dtype],
+        _BODIES[p.body], p.qt, p.rows, p.stages, p.rows_per_block, p.grid[0],
+        _build.stream_ptr(q),
     )
     _build.check(rc, "topk_retrieve_fwd")
     topk_retrieve.launches += 1
+    topk_retrieve.bodies[p.body] += 1
     return out_s, out_i
 
 
 def topk_retrieve(queries: torch.Tensor, index: torch.Tensor, k: int = 5):
     """Fused top-k cosine retrieval (k clamped to N). CUDA tensors launch the
-    kernel; CPU tensors run ``topk_retrieve_plain``."""
+    kernel (``launches`` counts the calls, ``bodies`` the pass-1 body each
+    took); CPU tensors run ``topk_retrieve_plain``."""
     if queries.dim() != 2 or index.dim() != 2:
         raise ValueError("topk_retrieve: queries (Q, D) and index (N, D)")
     k = min(int(k), index.shape[0])
@@ -118,6 +200,7 @@ def topk_retrieve(queries: torch.Tensor, index: torch.Tensor, k: int = 5):
 
 
 topk_retrieve.launches = 0
+topk_retrieve.bodies = dict.fromkeys(_BODIES, 0)
 
 
 def topk_retrieve_reference(queries, index, k: int = 5):
@@ -507,10 +590,15 @@ def topk_retrieve_q8(
 def topk_retrieve_auto(queries, index, k: int = 5):
     """Size bands of the JAX package: streaming kernel below
     ``MIDSCALE_MIN_N`` (and for fp32 up to ``TWOPASS_MIN_N``), the mid-band
-    matmul for bf16 in between, two-pass at and above ``TWOPASS_MIN_N``."""
+    matmul for bf16 in between, two-pass at and above ``TWOPASS_MIN_N``.
+
+    Below ``TWOPASS_MIN_N`` a ``k`` past the kernel's ``K_MAX`` takes the
+    exact mid-band route (one matmul, a stable sort, ties to the lower id):
+    the kernel's contract for an fp32 index; for a bf16 index the query is
+    cast to bf16 first, as the mid band does."""
     n = index.shape[0]
     if n >= TWOPASS_MIN_N:
         return topk_retrieve_twopass(queries, index, k)
-    if n >= MIDSCALE_MIN_N and index.dtype == torch.bfloat16:
+    if (n >= MIDSCALE_MIN_N and index.dtype == torch.bfloat16) or k > K_MAX:
         return topk_retrieve_midscale(queries, index, k)
     return topk_retrieve(queries, index, k)

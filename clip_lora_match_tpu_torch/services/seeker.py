@@ -80,6 +80,8 @@ class SeekerService:
     def _build_query_embedding(
         self, description: Optional[str], image: Optional[str | Image.Image]
     ) -> np.ndarray:
+        if isinstance(image, str) and not image:
+            image = None  # an empty path is no image, as in the JAX seeker
         if not description and image is None:
             raise ValueError("provide a description, an image, or both")
         text_emb = self.encoder.encode_text(description) if description else None
@@ -97,7 +99,8 @@ class SeekerService:
         image_path: Optional[str | Image.Image] = None,
         k: Optional[int] = None,
     ) -> list[SearchResult]:
-        """Top-k items for a description, an image (path or PIL image), or both."""
+        """Top-k items for a description, an image (path or PIL image), or both;
+        an empty path counts as no image."""
         self._maybe_reload()
         k = self.cfg.top_k if k is None else k
         if k < 0:

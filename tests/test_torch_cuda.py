@@ -15,7 +15,12 @@ bit-equal reruns, ragged and unaligned inputs through the WMMA body (each
 test checks the body the wrapper's plan picks), the LoRA matmul's grouped
 q/k/v launch from one row to a 96-image batch (its (3, M, N) slabs against
 per-projection launches), every tile, every rank up to R_MAX through both
-bf16 bodies, the attention layer's grouping only up to R_MAX, and the
+bf16 bodies, the attention layer's grouping only up to R_MAX, the top-k
+kernel at every query tile its plan picks (Q from 1 to 100, k from 1 to 256,
+both index types, D = 512 and 768 through the bulk and cp.async rings and
+D = 102 or a misaligned base through the plain body, N from 1 to 44,441),
+equal rows across blocks going to the lower id, bit-equal reruns, its body
+counts, a k = 300 search through SearchIndex on the mid-band route, and the
 wrappers' refusals. Each kernel test
 asserts that the wrapper's launch counter moved.
 """
@@ -327,6 +332,120 @@ def test_topk_retrieve_kernel_ties_take_the_lower_id(gen):
     index[300] = index[3]
     s, i = R.topk_retrieve(index[3:4] * 2, index, 3)
     assert i[0].tolist() == [3, 300, 700]
+
+
+def _assert_topk_matches_plain(s, i, rs, ri, what=""):
+    """Scores within 1e-5 of the plain version; ids equal except where the
+    plain scores are within 1e-5 of a neighbour (chip_smoke.py's rule)."""
+    assert s.shape == rs.shape and i.shape == ri.shape, what
+    torch.testing.assert_close(s, rs, atol=1e-5, rtol=0, msg=what)
+    near = torch.zeros_like(rs, dtype=torch.bool)
+    if rs.shape[1] > 1:
+        close = (rs[:, :-1] - rs[:, 1:]) <= 1e-5
+        near[:, :-1] |= close
+        near[:, 1:] |= close
+    assert torch.equal(i[~near], ri[~near]), what
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 5, 64, 256])
+@pytest.mark.parametrize("Q", [1, 3, 8, 9, 64, 100])
+def test_topk_retrieve_every_body_tile_and_ragged_n(gen, Q, k, dtype):
+    """Every query tile the plan picks (rows body at Q <= 8, the tile body
+    above), D = 512 and 768 through the bulk / cp.async rings and D = 102
+    (a row pitch no multiple of 16 bytes) through the plain body, and N = 1,
+    k, 257 and 44,441 rows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    base = torch.nn.functional.normalize(_rand(gen, 44_441, 768), dim=1)
+    queries = _rand(gen, Q, 768)
+    for D in (512, 768, 102):
+        for N in (1, k, 257, 44_441):
+            index = torch.nn.functional.normalize(base[:N, :D], dim=1).to(dtype).contiguous()
+            q = queries[:, :D].contiguous()
+            p = R.plan(Q, N, D, min(k, N), dtype, True, sms)
+            before = dict(R.topk_retrieve.bodies)
+            s, i = R.topk_retrieve(q, index, k)
+            rs, ri = R.topk_retrieve_plain(q, index, k)
+            torch.cuda.synchronize()
+            assert R.topk_retrieve.bodies[p.body] == before[p.body] + 1
+            assert p.body == ("plain" if D == 102 else "tile" if Q > 8 and p.qt >= 32 else "rows")
+            _assert_topk_matches_plain(s, i, rs, ri, f"D={D} N={N} {p}")
+
+
+@pytest.mark.parametrize("Q", [1, 3, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_retrieve_duplicate_rows_take_the_lower_id(gen, Q, dtype):
+    """Equal rows score bit-equal in every body, so ties go to the lower id,
+    across blocks too (copies 40,000 rows apart)."""
+    index = torch.nn.functional.normalize(_rand(gen, 44_441, 512), dim=1).to(dtype)
+    for dst in (300, 700, 20_000, 44_000):
+        index[dst] = index[3]
+    queries = index[3:4].float().repeat(Q, 1) * 2.0
+    for idx in (index, _misaligned(index)):
+        s, i = R.topk_retrieve(queries, idx, 8)
+        torch.cuda.synchronize()
+        assert (i[:, :5] == torch.tensor([3, 300, 700, 20_000, 44_000], device="cuda",
+                                         dtype=torch.int32)).all(), i[:, :5]
+        assert (s[:, :5] == s[:, :1]).all()
+
+
+def _misaligned(index):
+    """The same rows at a base 4 bytes past a 16-byte boundary (the plain body)."""
+    flat = torch.empty(index.numel() + 8, dtype=index.dtype, device=index.device)
+    off = 4 // index.element_size()
+    view = flat[off:off + index.numel()].view(index.shape)
+    view.copy_(index)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("Q,k,dtype", [(1, 5, torch.float32), (1, 64, torch.bfloat16),
+                                       (64, 5, torch.float32), (64, 64, torch.bfloat16),
+                                       (9, 256, torch.float32)])
+def test_topk_retrieve_reruns_are_bit_equal(gen, Q, k, dtype):
+    index = torch.nn.functional.normalize(_rand(gen, 44_441, 512), dim=1).to(dtype)
+    queries = _rand(gen, Q, 512)
+    s1, i1 = R.topk_retrieve(queries, index, k)
+    s2, i2 = R.topk_retrieve(queries, index, k)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, s2) and torch.equal(i1, i2)
+
+
+def test_topk_retrieve_counts_each_body(gen):
+    index = torch.nn.functional.normalize(_rand(gen, 5000, 512), dim=1)
+    before = dict(R.topk_retrieve.bodies)
+    launches = R.topk_retrieve.launches
+    for queries, idx, body in ((_rand(gen, 1, 512), index, "rows"),
+                               (_rand(gen, 64, 512), index, "tile"),
+                               (_rand(gen, 2, 512), _misaligned(index), "plain")):
+        s, i = R.topk_retrieve(queries, idx, 10)
+        rs, ri = R.topk_retrieve_plain(queries, idx, 10)
+        torch.cuda.synchronize()
+        _assert_topk_matches_plain(s, i, rs, ri, body)
+    assert {b: R.topk_retrieve.bodies[b] - before[b] for b in before} == {
+        "rows": 1, "tile": 1, "plain": 1}
+    assert R.topk_retrieve.launches - launches == 3
+
+
+def test_search_index_past_k_max_takes_the_mid_band_route(gen):
+    """k = 300 through SearchIndex over 44,446 fp32 rows on the card: 300
+    results equal to the plain route, and no kernel launch (the kernel's own
+    k <= 256 refusal stays)."""
+    import numpy as np
+
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+    from clip_lora_match_tpu_torch.retrieval.search import SearchIndex
+
+    rows = torch.nn.functional.normalize(_rand(gen, 44_446, 512), dim=1).cpu().numpy()
+    index = EmbeddingIndex(rows, device="cuda")
+    query = rows[17] + 0.1 * np.random.default_rng(0).standard_normal(512).astype(np.float32)
+    launches = R.topk_retrieve.launches
+    res = SearchIndex(index).search_with_embedding(query, 300)
+    assert R.topk_retrieve.launches == launches and len(res) == 300 and res[0].index == 17
+    rs, ri = R.topk_retrieve_plain(torch.from_numpy(query)[None].cuda(), index.embeddings, 300)
+    got_s = torch.tensor([[r.score for r in res]], device="cuda")
+    got_i = torch.tensor([[r.index for r in res]], device="cuda", dtype=torch.int32)
+    _assert_topk_matches_plain(got_s, got_i, rs, ri)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
