@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only topk_retrieve   # build and check one kernel (phase 2 only)
+    python3 chip_smoke.py --only tilemax         # the three pass-1 kernels and the bodies' crossover
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -14,9 +15,11 @@ Phases (any failure raises and exits non-zero):
    Q = 1 and 64, k = 5 and 64, with the body that ran), with kernel / plain
    / library times (wall per call between CUDA events, and the kernel's and
    the library's device time from torch.profiler) and the bound (fp32 flash
-   at the 3xTF32 rate its kernel computes at)
-   (the pass-1 tile-max kernels over 524,298- and 1,048,586-row indexes, and
-   the two-pass routes through them against the plain route);
+   and fp32 pass 1 on its mma body at the 3xTF32 rate they compute at)
+   (the pass-1 tile-max kernels over 524,298- and 1,048,586-row indexes at
+   Q = 1, 16 (tilemax) and 64, each row naming the body its plan took, both
+   bodies of tilemax at Q = 8, 16 and 32, and the two-pass routes through
+   them against the plain route);
 3. the main path at full ViT-B/32 width with a seeded r=8, alpha=16 LoRA:
    text, image and fused SeekerService.search_items requests over a
    44,446-row fp32 index, self-retrieval checks, a k=300 search through
@@ -31,7 +34,8 @@ Phases (any failure raises and exits non-zero):
    524,288 seeded rows and the 10 custom rows in a bf16 arena (tilemax),
    (c) (a) served from the int8 index (tilemax_sup_q8, hierarchical), (d) a
    44,446-row index served int8 (tilemax_sup_q8, flat route); a 64-query
-   search_batch against the plain route; request latency; then a
+   search_batch against the plain route, and its search's device and wall ms
+   by the kernel route and the plain route on (a)-(c); request latency; then a
    FinderService.report_item into (c)'s index with a SqliteStore, found by
    the next search, the int8 copy extended by one row;
 5. ViT-L/14-336 (ClipConfig(model_name="openai/clip-vit-large-patch14-336"),
@@ -103,6 +107,10 @@ SKIP_K300 = os.environ.get("SMOKE_SKIP_K300") == "1"
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def fmt(v) -> str:
+    return "null" if v is None else f"{v:.5f}"
 
 
 def bound_ms(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
@@ -432,14 +440,18 @@ def check_pass1(torch, R, gen):
                 raise AssertionError(f"{what} k={k}: kernel route vs plain route score err {err}")
             assert_ids_tie_aware(torch, f"{what} k={k}", i, rs, ri, tol)
 
-    for name, N, dtypes in (("tilemax", n_small, ("bf16", "fp32")),
-                            ("tilemax_sup", n_big, ("fp32", "bf16"))):
+    planned = hasattr(R, "tilemax_plan")  # False in a checkout from before the mma body
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, N, dtypes, qs in (("tilemax", n_small, ("bf16", "fp32"), (1, 16, 64)),
+                                ("tilemax_sup", n_big, ("fp32", "bf16"), (1, 64))):
         n_al = N // tile * tile
+        wrapper = getattr(R, name)
         for kind in dtypes:
             index = base[:N].to(torch.bfloat16 if kind == "bf16" else torch.float32)
-            for Q in (1, 64):
+            for Q in qs:
                 queries = torch.randn(Q, D, device="cuda", generator=gen)
                 qc = R._normalize(queries).to(index.dtype)
+                before = dict(getattr(wrapper, "bodies", {}))
                 if name == "tilemax":
                     got, ref = R.tilemax(qc, index, tile), R.tilemax_plain(qc, index, tile)
                     kern = lambda: R.tilemax(qc, index, tile)  # noqa: E731
@@ -455,12 +467,23 @@ def check_pass1(torch, R, gen):
                 err = (got - ref).abs().max().item()
                 if not err <= 1e-5:
                     raise AssertionError(f"{name} Q={Q} N={N} {kind}: max err {err}")
+                what = f"Q={Q} N={N} D={D} tile={tile}{f' group={group}' if name != 'tilemax' else ''} {kind} index"
+                arith = kind
+                if planned:  # the body this shape ran, which must be the plan's
+                    p = R.tilemax_plan(Q, N, D, index.dtype, tile, None if name == "tilemax" else group, sms)
+                    ran = [b for b, n in wrapper.bodies.items() if n != before.get(b, 0)]
+                    if ran != [p.body]:
+                        raise AssertionError(f"{name} {what}: bodies {ran}, plan {p.body}")
+                    what += f" [{p.body} qb={p.qb} grid={p.grid[0]}x{p.grid[1]}]"
+                    # the mma body's fp32 products are 3xTF32: the bound of that arithmetic
+                    if p.body == "mma" and kind == "fp32":
+                        arith = "3xtf32"
+                        what += " (bound: 3xTF32)"
                 record(
-                    name, f"Q={Q} N={N} D={D} tile={tile}{f' group={group}' if name != 'tilemax' else ''} "
-                    f"{kind} index", err, kern, plain,
+                    name, what, err, kern, plain,
                     lambda: torch.matmul(qc, index[:n_al].T).view(Q, -1, tile).amax(2),
                     N * D * index.element_size() + Q * D * index.element_size() + 4 * n_out,
-                    2 * Q * N * D, kind,
+                    2 * Q * N * D, arith,
                 )
                 routes(f"two-pass {name} Q={Q} {kind}", queries,
                        lambda q, k, p: R.topk_retrieve_twopass(q, index, k, pallas_pass1=p), 1e-5)
@@ -501,6 +524,39 @@ def check_pass1(torch, R, gen):
         routes(f"q8 two-pass Q={Q}", queries,
                lambda q, k, p: R.topk_retrieve_q8(q, values, scales, k, pallas_pass1=p), 0.0)
     return out
+
+
+def pass1_crossover(torch, R, gen, card):
+    """Both bodies of ``tilemax`` at Q = 8, 16 and 32 over the 524,298-row
+    index, each forced through the private launcher with its own plan and held
+    against the plain version: the crossover ``TILEMAX_MMA_MIN_Q`` rests on.
+    Device ms by torch.profiler."""
+    D, tile, N = 512, 16, BF16_ROWS + 10
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    index32 = torch.nn.functional.normalize(torch.randn(N, D, device="cuda", generator=gen), dim=1)
+    for kind, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        index = index32.to(dtype)
+        for Q in (8, 16, 32):
+            qc = R._normalize(torch.randn(Q, D, device="cuda", generator=gen)).to(dtype)
+            ref = R.tilemax_plain(qc, index, tile)
+            times = {}
+            for body in ("cuda_core", "mma"):
+                p = R.tilemax_plan(Q if body == "cuda_core" else max(Q, R.TILEMAX_MMA_MIN_Q),
+                                   N, D, dtype, tile, None, sms)
+                if body == "cuda_core" and p.body != body:
+                    p = p._replace(body="cuda_core", qb=8)
+                if p.body != body:
+                    raise AssertionError(f"crossover Q={Q} {kind}: no {body} plan")
+                got, _ = R._pass1_launch(qc, index, tile, None, p)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                if not err <= 1e-5:
+                    raise AssertionError(f"tilemax {body} Q={Q} {kind}: max err {err}")
+                times[body] = device_ms(torch, lambda: R._pass1_launch(qc, index, tile, None, p))
+            log(f"tilemax crossover Q={Q} N={N} D={D} {kind}: cuda_core device_ms {fmt(times['cuda_core'])} "
+                f"mma device_ms {fmt(times['mma'])}; the plan takes "
+                f"{R.tilemax_plan(Q, N, D, dtype, tile, None, sms).body} [{card}]")
+        del index
 
 
 # ---------------------------------------------------------------------------
@@ -867,6 +923,16 @@ def hbm_path(torch, card, enc, texts, images, paths):
             route = lambda p: R.topk_retrieve_twopass(q1, index.embeddings, 5, pallas_pass1=p)  # noqa: E731
         log(f"({tag}) one Q=1 k=5 search: kernel route {cuda_ms(torch, lambda: route(None)):.5f} ms, "
             f"plain route {cuda_ms(torch, lambda: route(False)):.5f} ms [{card}]")
+        if tag in ("a", "b", "c"):  # the 64-query search_batch's search (passes 1-3), both routes
+            if cfg.index_quantize == "int8":
+                route64 = lambda p: R.topk_retrieve_q8(q, vq, sc, 10, pallas_pass1=p)  # noqa: E731
+            else:
+                route64 = lambda p: R.topk_retrieve_twopass(q, index.embeddings, 10, pallas_pass1=p)  # noqa: E731
+            dev = {p: device_ms(torch, lambda: route64(p), reps=5) for p in (None, False)}
+            wall = {p: cuda_ms(torch, lambda: route64(p), reps=10) for p in (None, False)}
+            log(f"({tag}) 64-query k=10 search (search_batch's): kernel route device {fmt(dev[None])} ms "
+                f"wall {wall[None]:.5f} ms, plain route device {fmt(dev[False])} ms wall "
+                f"{wall[False]:.5f} ms; search_batch wall {cuda_ms(torch, lambda: svc._search.search_batch(batch, k=10), reps=5):.5f} ms [{card}]")
         lat = _latency(torch, (
             ("text", lambda: svc.search_items(description=texts[0])),
             ("image", lambda: svc.search_items(image_path=images[0])),
@@ -1167,12 +1233,16 @@ def main() -> int:
     ):
         if only is None or name in only:
             results[name] = fn(torch, mod, gen)
-    if only is None:
+    pass1 = ("tilemax", "tilemax_sup", "tilemax_sup_q8")
+    if only is None or any(n in only for n in pass1):
         results.update(check_pass1(torch, ops_topk, gen))
+        if hasattr(ops_topk, "tilemax_plan"):
+            pass1_crossover(torch, ops_topk, gen, card)
+    if only is None or "mlp_fused" in only:
         results["mlp_fused"] = check_mlp_fused(torch, ops_mlp, gen)
+    if only is None or "flash_attention" in only:
         results["flash_attention"] = check_flash(torch, ops_flash, gen)
     torch.cuda.empty_cache()
-    fmt = lambda v: "null" if v is None else f"{v:.5f}"  # noqa: E731
     for name, (rows, _) in results.items():
         for row in rows:
             log(f"{name} {row['shape']}: kernel_ms {row['ms']:.5f} device_ms {fmt(row['device_ms'])} "

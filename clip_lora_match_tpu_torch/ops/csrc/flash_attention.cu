@@ -49,6 +49,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int HD = 64;        // head_dim
@@ -69,24 +71,11 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v
   return __bfloat162float(v);
 }
 
-// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero) by
-// integer arithmetic, lo = x - hi exactly, of which the tensor core reads the
-// TF32 part (|lo| <= 2^-11 |x|, so the product keeps ~21 bits). Two integer
-// ops and a subtraction on the full-rate pipes: cvt.rna.tf32.f32 runs on a
-// slower one, and 288 splits per warp and key tile made it the limit.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8) += a (16 x 8, row) . b (8 x 8, col), TF32 in, fp32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// the 3xTF32 operand split and product, shared with retrieval_tilemax.cu; the
+// split is integer arithmetic because 288 splits per warp and key tile made
+// cvt.rna.tf32.f32 the limit
+using hopper::mma_tf32;
+using hopper::split;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -225,12 +214,12 @@ __global__ void __launch_bounds__(THREADS, 3) flash_attention_kernel(
           }
         if (SPLIT_KV)
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) mma(s[nt], qh[st], bl[nt][0], bl[nt][1]);
+          for (int nt = 0; nt < 8; ++nt) mma_tf32(s[nt], qh[st], bl[nt][0], bl[nt][1]);
         if (SPLIT_Q)
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) mma(s[nt], ql[st], bh[nt][0], bh[nt][1]);
+          for (int nt = 0; nt < 8; ++nt) mma_tf32(s[nt], ql[st], bh[nt][0], bh[nt][1]);
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma(s[nt], qh[st], bh[nt][0], bh[nt][1]);
+        for (int nt = 0; nt < 8; ++nt) mma_tf32(s[nt], qh[st], bh[nt][0], bh[nt][1]);
       }
     }
 
@@ -296,11 +285,11 @@ __global__ void __launch_bounds__(THREADS, 3) flash_attention_kernel(
         }
       if (SPLIT_KV)
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma(acc[nt], ph, bl[nt][0], bl[nt][1]);
+        for (int nt = 0; nt < 8; ++nt) mma_tf32(acc[nt], ph, bl[nt][0], bl[nt][1]);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mma(acc[nt], pl, bh[nt][0], bh[nt][1]);
+      for (int nt = 0; nt < 8; ++nt) mma_tf32(acc[nt], pl, bh[nt][0], bh[nt][1]);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mma(acc[nt], ph, bh[nt][0], bh[nt][1]);
+      for (int nt = 0; nt < 8; ++nt) mma_tf32(acc[nt], ph, bh[nt][0], bh[nt][1]);
     }
     __syncthreads();  // this stage is the target of the load two tiles on
   }

@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (mlp_fused.cu,
-// lora_matmul.cu) and the bulk-copy ring of retrieval_topk.cu: mbarriers, TMA
-// and 1-D bulk loads, cluster addressing, wgmma shared-memory
-// descriptors and fences, and the host side that encodes TMA tensor maps.
-// The shape-specific wgmma instructions stay in each kernel's file.
+// lora_matmul.cu), the bulk-copy ring of retrieval_topk.cu and the mma.sync
+// kernels (flash_attention.cu, retrieval_tilemax.cu): mbarriers, TMA and 1-D
+// bulk loads, cluster addressing, wgmma shared-memory descriptors and fences,
+// the 3xTF32 operand split and the mma.sync products, and the host side that
+// encodes TMA tensor maps. The shape-specific wgmma instructions stay in each
+// kernel's file.
 //
 // tensor maps: cuTensorMapEncodeTiled is a driver API; it is taken through
 // cudaGetDriverEntryPointByVersion, so the build needs no -lcuda.
@@ -106,6 +108,40 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// x = hi + lo for 3xTF32 (a.b = hi.hi + hi.lo + lo.hi): hi is x rounded to
+// TF32 (to nearest, ties away from zero) by integer arithmetic, lo = x - hi
+// exactly, of which the tensor core reads the TF32 part (|lo| <= 2^-11 |x|,
+// so the product keeps ~21 bits). Two integer ops and a subtraction on the
+// full-rate pipes: cvt.rna.tf32.f32 runs on a slower one.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8) += a (16 x 8, row) . b (8 x 8, col), TF32 in, fp32 accumulate.
+// a[0]: (row g, k t), a[1]: (g + 8, t), a[2]: (g, t + 4), a[3]: (g + 8, t + 4);
+// b0: (k t, col g), b1: (t + 4, g); g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8) += a (16 x 16, row) . b (16 x 8, col), bf16 pairs in, fp32
+// accumulate. a[0]: (row g, k 2t, 2t + 1), a[1]: (g + 8, 2t..), a[2]: (g,
+// 2t + 8..), a[3]: (g + 8, 2t + 8..); b0: (k 2t, 2t + 1, col g), b1: (2t + 8..)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -6,14 +6,15 @@ Port of ``clip_lora_match_tpu/ops/retrieval_topk.py``. ``topk_retrieve``
 index in fp32, and returns (scores (Q, k) fp32 descending, ids (Q, k) int32),
 ties to the lower row id. At HBM scale ``topk_retrieve_twopass`` and
 ``topk_retrieve_q8`` (int8 index) run pass 1 as tile maxima
-(``csrc/retrieval_tilemax.cu``: ``tilemax``, ``tilemax_sup``,
-``tilemax_sup_q8``), then passes 2 and 3 in PyTorch. ``topk_retrieve_auto``
-keeps the JAX package's size bands.
+(``csrc/retrieval_tilemax.cu``: ``tilemax``, ``tilemax_sup`` on the body
+``tilemax_plan`` picks, ``tilemax_sup_q8``), then passes 2 and 3 in
+PyTorch. ``topk_retrieve_auto`` keeps the JAX package's size bands.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -311,27 +312,121 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+# -- the fp32/bf16 tile-max kernels' launch plan (csrc/retrieval_tilemax.cu) -----
+
+# From this many queries on, pass 1 takes the mma body (the crossover measured
+# by ``chip_smoke.py --only tilemax``; PERF.md §6). Below it, the CUDA-core
+# body, already at its byte bound at the seeker's Q = 1.
+TILEMAX_MMA_MIN_Q = 9
+_MMA_TILES = (8, 16)
+_MMA_ROUND = 256  # rows of one round of an mma block: 8 warps x 2 fragments x 16
+_MMA_CHUNK = 64  # bytes of a row per k-chunk
+_PASS1_BODIES = {"cuda_core": 0, "mma": 1}
+
+
+class TilemaxPlan(NamedTuple):
+    """How one ``tilemax``/``tilemax_sup`` call runs: the body (``mma``:
+    tensor cores, a query block of 16, 32 or 64 staged once, the index read
+    once per query block; ``cuda_core``: FMA, a query block of 1-8), the
+    query block, the rows of one unit of work (mma: whole rounds and whole
+    groups; cuda_core: one block's tiles), the most rows one block takes, the
+    grid (index blocks, query blocks) and a block's shared memory."""
+
+    body: str
+    qb: int
+    unit: int
+    rows_per_block: int
+    grid: tuple
+    smem: int
+
+
+def _mma_smem(qb: int, row_bytes: int, tile: int) -> int:
+    """``mma_smem`` in the source: the staged query rows (stride 64 mod 128
+    bytes) and two stages of tile maxima."""
+    return qb * (_up(row_bytes, 128) + 64) + 2 * 4 * qb * (_MMA_ROUND // tile + 1)
+
+
+def tilemax_plan(Q: int, N: int, D: int, dtype, tile: int, group: Optional[int],
+                 sms: int) -> TilemaxPlan:
+    """The launch plan of pass 1 over an fp32 or bf16 index (``group``: None
+    for ``tilemax``). Q >= ``TILEMAX_MMA_MIN_Q`` with a tile of 8 or 16 and
+    rows of whole 64-byte k-chunks takes the mma body on the smallest query
+    block of 16, 32, 64 that holds Q (64 above), halved while it does not fit
+    ``SMEM_BLOCK`` (fp32 D = 1024: 32); the grid holds one block per SM
+    divided among the query blocks, each taking an equal share of whole units.
+    Every other shape, or one no query block fits, takes the CUDA-core body:
+    a query block of 1, 2, 4 or 8, one block per ``group`` (else 16) tiles."""
+    elem = 4 if dtype == torch.float32 else 2
+    row_bytes = D * elem
+    nt = -(-N // tile)
+    if Q >= TILEMAX_MMA_MIN_Q and tile in _MMA_TILES and row_bytes % _MMA_CHUNK == 0:
+        qb = next(b for b in (16, 32, 64) if b >= min(Q, 64))
+        while qb >= 16 and _mma_smem(qb, row_bytes, tile) > SMEM_BLOCK:
+            qb //= 2
+        if qb >= 16:
+            unit = _MMA_ROUND if group is None else math.lcm(_MMA_ROUND, group * tile)
+            units = -(-nt * tile // unit)
+            gy = -(-Q // qb)
+            gx = min(units, max(1, -(-sms // gy)))
+            return TilemaxPlan("mma", qb, unit, -(-units // gx) * unit, (gx, gy),
+                               _mma_smem(qb, row_bytes, tile))
+    qb = 1 << (min(Q, 8) - 1).bit_length()
+    tpb = 16 if group is None else group
+    smem = _up(qb * row_bytes, 16) + (4 * qb * tpb if group is not None else 0)
+    return TilemaxPlan("cuda_core", qb, tpb * tile, tpb * tile, (-(-nt // tpb), -(-Q // qb)), smem)
+
+
+# tilemax_fwd(queries, index, tmax, Q, N, D, tile, index_dtype, body, qb,
+#             unit_rows, grid_x, stream); tilemax_sup_fwd adds gmax after
+# tmax and group after tile
+_TILEMAX_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+_TILEMAX_SUP_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+
+
+def _pass1_launch(qc, index, tile: int, group: Optional[int], plan: TilemaxPlan):
+    """Launch ``tilemax_fwd`` (``group`` None) or ``tilemax_sup_fwd`` on CUDA
+    tensors with ``plan``; returns (tmax, gmax or None)."""
+    (Q, D), N = qc.shape, index.shape[0]
+    if plan.body == "mma" and qc.data_ptr() % 16:  # the query block is staged in 16-byte vectors
+        qc = qc.clone()
+    tmax, gmax = _pass1_out(qc, N, tile, group)
+    how = (_DTYPES[index.dtype], _PASS1_BODIES[plan.body], plan.qb, plan.unit, plan.grid[0],
+           _build.stream_ptr(qc))
+    if group is None:
+        rc = _build.function("retrieval_tilemax", "tilemax_fwd", _TILEMAX_ARGS)(
+            qc.data_ptr(), index.data_ptr(), tmax.data_ptr(), Q, N, D, tile, *how)
+        _build.check(rc, "tilemax_fwd")
+    else:
+        rc = _build.function("retrieval_tilemax", "tilemax_sup_fwd", _TILEMAX_SUP_ARGS)(
+            qc.data_ptr(), index.data_ptr(), tmax.data_ptr(), gmax.data_ptr(), Q, N, D, tile,
+            group, *how)
+        _build.check(rc, "tilemax_sup_fwd")
+    return tmax, gmax
+
+
+def _pass1_plan(qc, index, tile, group) -> TilemaxPlan:
+    (Q, D), N = qc.shape, index.shape[0]
+    return tilemax_plan(Q, N, D, index.dtype, tile, group, _build.sm_count(qc.device))
+
+
 def tilemax(qc: torch.Tensor, index: torch.Tensor, tile: int = 16) -> torch.Tensor:
     """Pass-1 tile maxima (Q, ceil(N/tile)) fp32 of ``qc·indexᵀ``, ``qc`` the
     normalized queries cast to the index type. CUDA tensors launch the
-    kernel; CPU tensors run ``tilemax_plain``."""
+    kernel on the body ``tilemax_plan`` picks (``launches`` counts the calls,
+    ``bodies`` the body each took); CPU tensors run ``tilemax_plain``."""
     _check_pass1("tilemax", qc, index, tile)
     if qc.device.type == "cpu":
         return tilemax_plain(qc, index, tile)
     qc = qc.contiguous()
-    (Q, D), N = qc.shape, index.shape[0]
-    tmax, _ = _pass1_out(qc, N, tile)
-    rc = _build.load("retrieval_tilemax").tilemax_fwd(
-        _ptr(qc), _ptr(index), _ptr(tmax), ctypes.c_int(Q), ctypes.c_int(N),
-        ctypes.c_int(D), ctypes.c_int(tile), ctypes.c_int(_DTYPES[index.dtype]),
-        ctypes.c_void_p(_build.stream_ptr(qc)),
-    )
-    _build.check(rc, "tilemax_fwd")
+    plan = _pass1_plan(qc, index, tile, None)
+    tmax, _ = _pass1_launch(qc, index, tile, None, plan)
     tilemax.launches += 1
+    tilemax.bodies[plan.body] += 1
     return tmax
 
 
 tilemax.launches = 0
+tilemax.bodies = dict.fromkeys(_PASS1_BODIES, 0)
 
 
 def tilemax_sup(qc, index, tile: int = 16, group: int = HIER_GROUP):
@@ -341,19 +436,15 @@ def tilemax_sup(qc, index, tile: int = 16, group: int = HIER_GROUP):
     if qc.device.type == "cpu":
         return tilemax_sup_plain(qc, index, tile, group)
     qc = qc.contiguous()
-    (Q, D), N = qc.shape, index.shape[0]
-    tmax, gmax = _pass1_out(qc, N, tile, group)
-    rc = _build.load("retrieval_tilemax").tilemax_sup_fwd(
-        _ptr(qc), _ptr(index), _ptr(tmax), _ptr(gmax), ctypes.c_int(Q),
-        ctypes.c_int(N), ctypes.c_int(D), ctypes.c_int(tile), ctypes.c_int(group),
-        ctypes.c_int(_DTYPES[index.dtype]), ctypes.c_void_p(_build.stream_ptr(qc)),
-    )
-    _build.check(rc, "tilemax_sup_fwd")
+    plan = _pass1_plan(qc, index, tile, group)
+    tmax, gmax = _pass1_launch(qc, index, tile, group, plan)
     tilemax_sup.launches += 1
+    tilemax_sup.bodies[plan.body] += 1
     return tmax, gmax
 
 
 tilemax_sup.launches = 0
+tilemax_sup.bodies = dict.fromkeys(_PASS1_BODIES, 0)
 
 
 def tilemax_sup_q8(qq, values, scales, tile: int = 16, group: int = HIER_GROUP,

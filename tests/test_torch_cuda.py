@@ -20,9 +20,14 @@ kernel at every query tile its plan picks (Q from 1 to 100, k from 1 to 256,
 both index types, D = 512 and 768 through the bulk and cp.async rings and
 D = 102 or a misaligned base through the plain body, N from 1 to 44,441),
 equal rows across blocks going to the lower id, bit-equal reruns, its body
-counts, a k = 300 search through SearchIndex on the mid-band route, and the
-wrappers' refusals. Each kernel test
-asserts that the wrapper's launch counter moved.
+counts, a k = 300 search through SearchIndex on the mid-band route, the
+pass-1 tile-max kernels on both bodies of their plan (Q from 1 to 130 across
+the switch at 9, D from 64 to 1024, tiles 8 and 16 on the mma body and odd
+tiles on the CUDA-core body, N no multiple of a tile, a round or a group,
+pad rows scoring 0, group maxima equal to the maxima of the kernel's own tile
+maxima, the two-pass route against the plain route at Q = 64), and the
+wrappers' refusals. Each kernel test asserts that the wrapper's launch
+counter moved.
 """
 
 import pytest
@@ -520,12 +525,31 @@ def _qc(gen, Q, D, dtype):
     return R._normalize(_rand(gen, Q, D)).to(dtype)
 
 
+def _assert_body(wrapper, before, qc, index, tile, group):
+    """The wrapper ran the body its plan picks, once."""
+    p = R.tilemax_plan(qc.shape[0], index.shape[0], index.shape[1], index.dtype, tile, group,
+                       _build.sm_count(qc.device))
+    assert {b: wrapper.bodies[b] - before[b] for b in before} == {
+        b: int(b == p.body) for b in before}
+    return p
+
+
+# Q across the body switch (8 | 9) and ragged query blocks; N no multiple of
+# the tile, of a block's rows or of a round; D from 64 to the L/14 index and
+# 1024 (fp32: a query block of 32); tiles 8 and 16 on the mma body, odd tiles
+# on the CUDA-core body
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Q,N,D,tile", [(1, 1, 128, 16), (7, 4097, 128, 16), (64, 70_001, 512, 16),
-                                         (3, 1000, 256, 8), (9, 5003, 64, 32)])
+                                         (3, 1000, 256, 8), (9, 5003, 64, 32),
+                                         (8, 4099, 512, 16), (9, 4097, 64, 16), (16, 10_007, 512, 8),
+                                         (63, 70_001, 768, 16), (64, 33_333, 1024, 8), (65, 20_011, 1024, 16),
+                                         (130, 20_013, 512, 16), (16, 1, 64, 8), (64, 5003, 768, 5)])
 def test_tilemax_kernel(gen, Q, N, D, tile, dtype):
     qc, index = _qc(gen, Q, D, dtype), _unit_index(gen, N, D, dtype)
+    before = dict(R.tilemax.bodies)
     got = R.tilemax(qc, index, tile)
+    p = _assert_body(R.tilemax, before, qc, index, tile, None)
+    assert p.body == ("mma" if Q >= 9 and tile in (8, 16) else "cuda_core")
     ref = R.tilemax_plain(qc, index, tile)
     torch.cuda.synchronize()
     assert got.shape == ref.shape == (Q, -(-N // tile))
@@ -533,16 +557,41 @@ def test_tilemax_kernel(gen, Q, N, D, tile, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Q,N,group", [(1, 4096, 16), (7, 8692, 16), (64, 70_003, 8), (2, 33, 16)])
-def test_tilemax_sup_kernel(gen, Q, N, group, dtype):
-    qc, index = _qc(gen, Q, 512, dtype), _unit_index(gen, N, 512, dtype)
-    tmax, gmax = R.tilemax_sup(qc, index, 16, group)
-    rt, rg = R.tilemax_sup_plain(qc, index, 16, group)
+@pytest.mark.parametrize("Q,N,D,tile,group", [(1, 4096, 512, 16, 16), (7, 8692, 512, 16, 16),
+                                               (64, 70_003, 512, 16, 8), (2, 33, 512, 16, 16),
+                                               (9, 8692, 64, 16, 16), (16, 70_003, 768, 8, 16),
+                                               (63, 100_001, 512, 16, 32), (65, 40_961, 1024, 16, 16),
+                                               (130, 30_011, 512, 8, 3), (64, 33, 768, 16, 16),
+                                               (64, 9001, 512, 12, 16)])
+def test_tilemax_sup_kernel(gen, Q, N, D, tile, group, dtype):
+    qc, index = _qc(gen, Q, D, dtype), _unit_index(gen, N, D, dtype)
+    before = dict(R.tilemax_sup.bodies)
+    tmax, gmax = R.tilemax_sup(qc, index, tile, group)
+    p = _assert_body(R.tilemax_sup, before, qc, index, tile, group)
+    assert p.body == ("mma" if Q >= 9 and tile in (8, 16) else "cuda_core")
+    rt, rg = R.tilemax_sup_plain(qc, index, tile, group)
     torch.cuda.synchronize()
     torch.testing.assert_close(tmax, rt, atol=1e-5, rtol=0)
     torch.testing.assert_close(gmax, rg, atol=1e-5, rtol=0)
     # the group maxima are maxima of the kernel's own tile maxima
     assert torch.equal(gmax, R._group_max(tmax, group))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,tile", [(1, 16), (1, 8), (16, 16), (16, 8), (64, 16), (64, 8)])
+def test_tilemax_pad_rows_score_zero(gen, Q, tile, dtype):
+    """Every real row scores below 0, so the last tile's maximum is its pad
+    rows' 0 and every other tile's is negative, on both bodies."""
+    N, D = 64 * tile + 3, 512
+    qc = R._normalize(_rand(gen, Q, D).abs() + 0.1).to(dtype)
+    index = (-torch.nn.functional.normalize(_rand(gen, N, D).abs() + 0.1, dim=1)).to(dtype)
+    tmax = R.tilemax(qc, index, tile)
+    tmax_s, gmax = R.tilemax_sup(qc, index, tile, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(tmax, tmax_s)
+    assert (tmax[:, -1] == 0).all() and (tmax[:, :-1] < 0).all()
+    assert (gmax[:, -1] == 0).all() and (gmax[:, :-1] < 0).all()
+    torch.testing.assert_close(tmax, R.tilemax_plain(qc, index, tile), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("mxu", ["int8", "bf16"])
@@ -568,7 +617,9 @@ def _ids_equal_where_apart(s, i, rs, ri, tol=1e-5):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Q,N,k,n_valid,group", [(1, 70_001, 1, None, None), (7, 70_001, 64, 69_000, None),
-                                                  (64, 300_007, 10, None, 16), (3, 40_000, 5, 39_990, 8)])
+                                                  (64, 300_007, 10, None, 16), (3, 40_000, 5, 39_990, 8),
+                                                  (64, 300_007, 5, None, 16), (64, 150_011, 64, 149_000, None),
+                                                  (64, 1_048_586, 64, None, None), (16, 524_298, 5, None, None)])
 def test_twopass_kernel_route_matches_plain_route(gen, Q, N, k, n_valid, group, dtype):
     index = _unit_index(gen, N, 512, dtype)
     queries = _rand(gen, Q, 512)
