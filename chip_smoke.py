@@ -18,8 +18,8 @@ Phases (any failure raises and exits non-zero):
    and fp32 pass 1 on its mma body at the 3xTF32 rate they compute at)
    (the pass-1 tile-max kernels over 524,298- and 1,048,586-row indexes at
    Q = 1, 16 (tilemax) and 64, each row naming the body its plan took, both
-   bodies of tilemax at Q = 8, 16 and 32, and the two-pass routes through
-   them against the plain route);
+   bodies of tilemax (bf16, fp32) and of tilemax_sup_q8 (int8) at Q = 8, 16
+   and 32, and the two-pass routes through them against the plain route);
 3. the main path at full ViT-B/32 width with a seeded r=8, alpha=16 LoRA:
    text, image and fused SeekerService.search_items requests over a
    44,446-row fp32 index, self-retrieval checks, a k=300 search through
@@ -33,9 +33,11 @@ Phases (any failure raises and exits non-zero):
    run: (a) a 1,048,586-row fp32 index (two-pass, tilemax_sup), (b) its first
    524,288 seeded rows and the 10 custom rows in a bf16 arena (tilemax),
    (c) (a) served from the int8 index (tilemax_sup_q8, hierarchical), (d) a
-   44,446-row index served int8 (tilemax_sup_q8, flat route); a 64-query
-   search_batch against the plain route, and its search's device and wall ms
-   by the kernel route and the plain route on (a)-(c); request latency; then a
+   44,446-row index served int8 (tilemax_sup_q8, flat route), each run's
+   15 Q=1 searches on the CUDA-core body and its batch on the mma body; a
+   64-query search_batch against the plain route, and its search's device and
+   wall ms by the kernel route and the plain route on (a)-(d); request
+   latency; then a
    FinderService.report_item into (c)'s index with a SqliteStore, found by
    the next search, the int8 copy extended by one row;
 5. ViT-L/14-336 (ClipConfig(model_name="openai/clip-vit-large-patch14-336"),
@@ -491,16 +493,27 @@ def check_pass1(torch, R, gen):
 
     values, scales = R.quantize_index_int8(base)
     del base
+    # False in a checkout from before the int8 index took the mma body
+    q8_planned = hasattr(R.tilemax_sup_q8, "bodies")
     for Q in (1, 64):
         queries = torch.randn(Q, D, device="cuda", generator=gen)
         qq, _ = R._quantize_queries(queries)
+        what = f"Q={Q} N={n_big} D={D} tile={tile} group={group} int8 index"
         for mxu in ("int8", "bf16") if Q == 64 else ("int8",):
+            before = dict(getattr(R.tilemax_sup_q8, "bodies", {}))
             got = torch.cat(R.tilemax_sup_q8(qq, values, scales, tile, group, mxu), 1)
             ref = torch.cat(R.tilemax_sup_q8_plain(qq, values, scales, tile, group), 1)
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
                 raise AssertionError(f"tilemax_sup_q8 Q={Q} mxu={mxu}: maxima not bit-equal "
                                      f"(max err {(got - ref).abs().max().item()})")
+            if q8_planned:  # the body this shape ran, which must be the plan's
+                p = R.tilemax_plan(Q, n_big, D, torch.int8, tile, group, sms)
+                ran = [b for b, n in R.tilemax_sup_q8.bodies.items() if n != before.get(b, 0)]
+                if ran != [p.body]:
+                    raise AssertionError(f"tilemax_sup_q8 {what} mxu={mxu}: bodies {ran}, plan {p.body}")
+        if q8_planned:
+            what += f" [{p.body} qb={p.qb} grid={p.grid[0]}x{p.grid[1]}]"
         n_al = n_big // tile * tile
         # torch._int_mm takes more than 16 rows: a smaller query block is
         # padded with zero rows to 17, and only its own rows are scaled
@@ -516,7 +529,7 @@ def check_pass1(torch, R, gen):
             library_call = None
         pad_note = f" (library: query padded to {qp.shape[0]} rows)" if qp.shape[0] != Q else ""
         record(
-            "tilemax_sup_q8", f"Q={Q} N={n_big} D={D} tile={tile} group={group} int8 index{pad_note}", 0.0,
+            "tilemax_sup_q8", f"{what}{pad_note}", 0.0,
             lambda: R.tilemax_sup_q8(qq, values, scales, tile, group),
             lambda: R.tilemax_sup_q8_plain(qq, values, scales, tile, group),
             library_call, n_big * D + n_big * 4 + Q * D + 4 * got.numel(), 2 * Q * n_big * D, "int8",
@@ -527,35 +540,54 @@ def check_pass1(torch, R, gen):
 
 
 def pass1_crossover(torch, R, gen, card):
-    """Both bodies of ``tilemax`` at Q = 8, 16 and 32 over the 524,298-row
-    index, each forced through the private launcher with its own plan and held
-    against the plain version: the crossover ``TILEMAX_MMA_MIN_Q`` rests on.
-    Device ms by torch.profiler."""
-    D, tile, N = 512, 16, BF16_ROWS + 10
+    """Both bodies of ``tilemax`` (bf16, fp32) and of ``tilemax_sup_q8``
+    (int8, group 16) at Q = 8, 16 and 32 over the 524,298-row index, each
+    forced through the private launcher with its own plan and held against the
+    plain version (int8: bit-equal): the crossover ``TILEMAX_MMA_MIN_Q`` rests
+    on. Device ms by torch.profiler."""
+    D, tile, N, group = 512, 16, BF16_ROWS + 10, R.HIER_GROUP
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     index32 = torch.nn.functional.normalize(torch.randn(N, D, device="cuda", generator=gen), dim=1)
-    for kind, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        index = index32.to(dtype)
+    kinds = [("bf16", torch.bfloat16), ("fp32", torch.float32)]
+    if hasattr(R.tilemax_sup_q8, "bodies"):  # the int8 index takes both bodies
+        kinds.append(("int8", torch.int8))
+    for kind, dtype in kinds:
+        if dtype == torch.int8:
+            index, scales = R.quantize_index_int8(index32)
+            grp = group
+        else:
+            index, scales, grp = index32.to(dtype), None, None
         for Q in (8, 16, 32):
-            qc = R._normalize(torch.randn(Q, D, device="cuda", generator=gen)).to(dtype)
-            ref = R.tilemax_plain(qc, index, tile)
+            queries = torch.randn(Q, D, device="cuda", generator=gen)
+            if scales is None:
+                qc = R._normalize(queries).to(dtype)
+                ref = R.tilemax_plain(qc, index, tile)
+            else:
+                qc, _ = R._quantize_queries(queries)
+                ref = torch.cat(R.tilemax_sup_q8_plain(qc, index, scales, tile, grp), 1)
             times = {}
             for body in ("cuda_core", "mma"):
                 p = R.tilemax_plan(Q if body == "cuda_core" else max(Q, R.TILEMAX_MMA_MIN_Q),
-                                   N, D, dtype, tile, None, sms)
+                                   N, D, dtype, tile, grp, sms)
                 if body == "cuda_core" and p.body != body:
                     p = p._replace(body="cuda_core", qb=8)
                 if p.body != body:
                     raise AssertionError(f"crossover Q={Q} {kind}: no {body} plan")
-                got, _ = R._pass1_launch(qc, index, tile, None, p)
+
+                def run():
+                    if scales is None:
+                        return R._pass1_launch(qc, index, tile, None, p)[0]
+                    return torch.cat(R._pass1_launch(qc, index, tile, grp, p, scales), 1)
+                got = run()
                 torch.cuda.synchronize()
                 err = (got - ref).abs().max().item()
-                if not err <= 1e-5:
-                    raise AssertionError(f"tilemax {body} Q={Q} {kind}: max err {err}")
-                times[body] = device_ms(torch, lambda: R._pass1_launch(qc, index, tile, None, p))
-            log(f"tilemax crossover Q={Q} N={N} D={D} {kind}: cuda_core device_ms {fmt(times['cuda_core'])} "
+                if not (torch.equal(got, ref) if scales is not None else err <= 1e-5):
+                    raise AssertionError(f"pass 1 {body} Q={Q} {kind}: max err {err}")
+                times[body] = device_ms(torch, run)
+            name = "tilemax" if scales is None else "tilemax_sup_q8"
+            log(f"{name} crossover Q={Q} N={N} D={D} {kind}: cuda_core device_ms {fmt(times['cuda_core'])} "
                 f"mma device_ms {fmt(times['mma'])}; the plan takes "
-                f"{R.tilemax_plan(Q, N, D, dtype, tile, None, sms).body} [{card}]")
+                f"{R.tilemax_plan(Q, N, D, dtype, tile, grp, sms).body} [{card}]")
         del index
 
 
@@ -870,7 +902,9 @@ def hbm_path(torch, card, enc, texts, images, paths):
         base = len(index) - 2 * n
         svc.search_items(description=texts[0])  # set-up: the int8 copy of (c) is built here
         torch.cuda.synchronize()
+        wrapper = ops.KERNEL_WRAPPERS[kernel]
         # -- the run whose launches are counted ----------------------------
+        bodies_before = dict(getattr(wrapper, "bodies", {}))
         ops.reset_launch_counts()
         text_res = [svc.search_items(description=t) for t in texts]
         image_res = [svc.search_items(image_path=im) for im in images]
@@ -887,6 +921,11 @@ def hbm_path(torch, card, enc, texts, images, paths):
         want[kernel] = 3 * n + 1  # one per search, the 64-query batch included
         if counts != want:
             raise AssertionError(f"({tag}) launch counts {counts} != expected {want}")
+        if bodies_before:  # the Q=1 searches on the CUDA-core body, the batch on the mma body
+            ran = {b: wrapper.bodies[b] - bodies_before[b] for b in bodies_before}
+            if ran != {"cuda_core": 3 * n, "mma": 1}:
+                raise AssertionError(f"({tag}) {kernel} bodies {ran} != {3 * n} cuda_core + 1 mma")
+            log(f"phase 4 ({tag}) {kernel} bodies: {json.dumps(ran)}")
 
         for i in range(n):
             t_top, i_top, b_top = text_res[i][0], image_res[i][0], both_res[i][0]
@@ -923,16 +962,16 @@ def hbm_path(torch, card, enc, texts, images, paths):
             route = lambda p: R.topk_retrieve_twopass(q1, index.embeddings, 5, pallas_pass1=p)  # noqa: E731
         log(f"({tag}) one Q=1 k=5 search: kernel route {cuda_ms(torch, lambda: route(None)):.5f} ms, "
             f"plain route {cuda_ms(torch, lambda: route(False)):.5f} ms [{card}]")
-        if tag in ("a", "b", "c"):  # the 64-query search_batch's search (passes 1-3), both routes
-            if cfg.index_quantize == "int8":
-                route64 = lambda p: R.topk_retrieve_q8(q, vq, sc, 10, pallas_pass1=p)  # noqa: E731
-            else:
-                route64 = lambda p: R.topk_retrieve_twopass(q, index.embeddings, 10, pallas_pass1=p)  # noqa: E731
-            dev = {p: device_ms(torch, lambda: route64(p), reps=5) for p in (None, False)}
-            wall = {p: cuda_ms(torch, lambda: route64(p), reps=10) for p in (None, False)}
-            log(f"({tag}) 64-query k=10 search (search_batch's): kernel route device {fmt(dev[None])} ms "
-                f"wall {wall[None]:.5f} ms, plain route device {fmt(dev[False])} ms wall "
-                f"{wall[False]:.5f} ms; search_batch wall {cuda_ms(torch, lambda: svc._search.search_batch(batch, k=10), reps=5):.5f} ms [{card}]")
+        # the 64-query search_batch's search (passes 1-3), both routes
+        if cfg.index_quantize == "int8":
+            route64 = lambda p: R.topk_retrieve_q8(q, vq, sc, 10, pallas_pass1=p)  # noqa: E731
+        else:
+            route64 = lambda p: R.topk_retrieve_twopass(q, index.embeddings, 10, pallas_pass1=p)  # noqa: E731
+        dev = {p: device_ms(torch, lambda: route64(p), reps=5) for p in (None, False)}
+        wall = {p: cuda_ms(torch, lambda: route64(p), reps=10) for p in (None, False)}
+        log(f"({tag}) 64-query k=10 search (search_batch's): kernel route device {fmt(dev[None])} ms "
+            f"wall {wall[None]:.5f} ms, plain route device {fmt(dev[False])} ms wall "
+            f"{wall[False]:.5f} ms; search_batch wall {cuda_ms(torch, lambda: svc._search.search_batch(batch, k=10), reps=5):.5f} ms [{card}]")
         lat = _latency(torch, (
             ("text", lambda: svc.search_items(description=texts[0])),
             ("image", lambda: svc.search_items(image_path=images[0])),

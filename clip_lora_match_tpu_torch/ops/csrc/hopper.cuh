@@ -2,9 +2,9 @@
 // lora_matmul.cu), the bulk-copy ring of retrieval_topk.cu and the mma.sync
 // kernels (flash_attention.cu, retrieval_tilemax.cu): mbarriers, TMA and 1-D
 // bulk loads, cluster addressing, wgmma shared-memory descriptors and fences,
-// the 3xTF32 operand split and the mma.sync products, and the host side that
-// encodes TMA tensor maps. The shape-specific wgmma instructions stay in each
-// kernel's file.
+// the 3xTF32 operand split and the mma.sync products (tf32, bf16, s8), and
+// the host side that encodes TMA tensor maps. The shape-specific wgmma
+// instructions stay in each kernel's file.
 //
 // tensor maps: cuTensorMapEncodeTiled is a driver API; it is taken through
 // cudaGetDriverEntryPointByVersion, so the build needs no -lcuda.
@@ -141,6 +141,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8) += a (16 x 32, row) . b (32 x 8, col), s8 quadruples in, s32
+// accumulate (exact; no .satfinite, a sum past 2^31 would wrap). a[0]: (row
+// g, k 4t..4t + 3), a[1]: (g + 8, 4t..), a[2]: (g, 4t + 16..), a[3]: (g + 8,
+// 4t + 16..); b0: (k 4t..4t + 3, col g), b1: (4t + 16..). In 32-bit words the
+// same map as mma_bf16's
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

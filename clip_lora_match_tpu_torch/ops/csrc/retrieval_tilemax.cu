@@ -8,7 +8,7 @@
 // Contract kept: the query block arrives normalized and already cast to the
 //   index type (fp32, bf16, or int8 for the quantized index). Scores
 //   accumulate in fp32 (fp32 and bf16 indexes; a bf16 x bf16 product is exact
-//   in fp32) or in int32 (int8 x int8 by __dp4a, exact). The int8 score is
+//   in fp32) or in int32 (int8 x int8, exact). The int8 score is
 //   float(int32 dot) * scale[row]: the per-row index scale applied in fp32
 //   after the conversion, the per-query scale NOT applied, so the maxima equal
 //   the fp32 rescoring of the candidates bit for bit (D <= 1024 keeps every
@@ -20,15 +20,17 @@
 //   last group covers the tiles that exist.
 // What bounds it on the H100: bytes, once the index is read once per query
 //   batch. N*D*4 bytes fp32 (half for bf16, a quarter for int8) against
-//   2*Q*N*D operations: at Q = 64 bf16 products on the tensor cores take a
-//   fifth of the byte time, fp32 as 3xTF32 about two thirds.
-// Two bodies, chosen by the host's plan (ops/retrieval_topk.py tilemax_plan):
-// - cuda_core (Q <= 8, any tile; and every int8 index): a block of 8 warps
-//   owns `tpb` consecutive tiles (one group when group maxima are asked for,
-//   else 16) and a block of QB <= 8 queries, staged in shared memory (bf16
-//   and int8 queries in their own type, so that one conflict-free 16-byte
-//   shared load meets each 16-byte index vector). A warp walks its tiles row
-//   by row: each lane loads 16-byte vectors of the row (coalesced across the
+//   2*Q*N*D operations: at Q = 64 bf16 and int8 products on the tensor cores
+//   take a fifth of the byte time, fp32 as 3xTF32 about two thirds.
+// Two bodies, chosen by the host's plan (ops/retrieval_topk.py
+// tilemax_plan) the same way for all three index types:
+// - cuda_core (Q <= 8, or a tile other than 8 and 16, or rows not of whole
+//   64-byte k-chunks; int8 by __dp4a): a block of 8 warps owns `tpb`
+//   consecutive tiles (one group when group maxima are asked for, else 16)
+//   and a block of QB <= 8 queries, staged in shared memory (bf16 and int8
+//   queries in their own type, so that one conflict-free 16-byte shared
+//   load meets each 16-byte index vector). A warp walks its tiles row by
+//   row: each lane loads 16-byte vectors of the row (coalesced across the
 //   warp) and multiplies them with the staged queries on the CUDA cores; a
 //   reduce-scatter butterfly leaves each query's row score in 32/QB lanes,
 //   which fold it into that query's running tile maximum. The block then
@@ -36,30 +38,33 @@
 //   so the (Q, nt) array is never read back, as on the TPU. At Q = 1 this
 //   runs at the byte bound; at Q > 8 it would read the index once per 8
 //   queries.
-// - mma (Q > 8, tile 8 or 16, rows a multiple of 64 bytes; fp32 and bf16):
-//   a block of 8 warps keeps up to 64 queries in shared memory for its
-//   lifetime, so Q <= 64 reads the index once. The index takes no shared
-//   memory: a warp loads its 16-row fragments (one m16 fragment is one
-//   16-row tile) straight from global memory into mma A fragments, each lane
-//   16 contiguous bytes of a row (4 lanes cover 64 bytes: one k-chunk), and
-//   keeps 4 k-chunks of 2 fragments in registers, 3 in flight (6 KB a warp,
-//   48 KB an SM). The sum over D does not depend on order, so K is permuted
-//   the same way in both operands: the 16 bytes a lane holds feed two mma
-//   k-steps, and the query B fragments are read from shared memory as one
-//   16-byte load per (k-chunk, 8 queries), rows padded to a stride of 64
-//   mod 128 bytes so those loads are free of bank conflicts. bf16 runs
-//   mma.sync m16n8k16 (exact products, fp32 sums); fp32 runs 3xTF32 on
-//   m16n8k8 (hopper::split; the lo.lo product dropped, ~2^-22 relative), the
-//   index split once per k-chunk for all query tiles, each query fragment
-//   split once for both row fragments. A block walks its rows in rounds of
-//   256 (8 warps x 2 fragments); after each round the tile maxima (per query
-//   column: the max of a lane's two rows, then xor shuffles over the 8 row
-//   groups) go to a double-buffered shared stage, one barrier, and the block
-//   writes them out as runs of contiguous tiles per query and folds them into
-//   running group maxima (a block owns whole groups). The loads of the next
-//   round are issued before that barrier. Row ranges are whole units (256
-//   rows, or the lcm of 256 and a group's rows), split evenly over a grid
-//   sized to the SMs.
+// - mma (Q > 8, tile 8 or 16, rows a multiple of 64 bytes): a block of 8
+//   warps keeps up to 64 queries in shared memory for its lifetime, so Q <=
+//   64 reads the index once. The index takes no shared memory: a warp loads
+//   its 16-row fragments (one m16 fragment is one 16-row tile) straight
+//   from global memory into mma A fragments, each lane 16 contiguous bytes
+//   of a row (4 lanes cover 64 bytes: one k-chunk), and keeps 4 k-chunks of
+//   2 fragments in registers, 3 in flight (6 KB a warp, 48 KB an SM). The
+//   sum over D does not depend on order, so K is permuted the same way in
+//   both operands: the 16 bytes a lane holds feed two mma k-steps, and the
+//   query B fragments are read from shared memory as one 16-byte load per
+//   (k-chunk, 8 queries), rows padded to a stride of 64 mod 128 bytes so
+//   those loads are free of bank conflicts. bf16 runs mma.sync m16n8k16
+//   (exact products, fp32 sums); int8 runs m16n8k32 (the same fragment map
+//   in 32-bit words, so a k-chunk is 64 values; exact int32 sums, each
+//   turned into float(sum) * scale[row] before the round's maxima, with the
+//   scales of a lane's rows loaded as the round's first k-chunk is
+//   computed); fp32 runs 3xTF32 on m16n8k8 (hopper::split; the lo.lo
+//   product dropped, ~2^-22 relative), the index split once per k-chunk for
+//   all query tiles, each query fragment split once for both row fragments.
+//   A block walks its rows in rounds of 256 (8 warps x 2 fragments); after
+//   each round the tile maxima (per query column: the max of a lane's two
+//   rows, then xor shuffles over the 8 row groups) go to a double-buffered
+//   shared stage, one barrier, and the block writes them out as runs of
+//   contiguous tiles per query and folds them into running group maxima (a
+//   block owns whole groups). The loads of the next round are issued before
+//   that barrier. Row ranges are whole units (256 rows, or the lcm of 256
+//   and a group's rows), split evenly over a grid sized to the SMs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -75,9 +80,10 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int PLAIN_TILES_PER_BLOCK = 16;
 
-// MODE: 0 = fp32 index, 1 = bf16 index, 2 = int8 index by __dp4a
+// MODE: 0 = fp32 index, 1 = bf16 index, 2 = int8 index (int32 sums)
 template <int MODE> struct Mode {
   static constexpr int PER_VEC = MODE == 0 ? 4 : (MODE == 1 ? 8 : 16);  // elements per 16 B
+  static constexpr int ELEM = 16 / PER_VEC;  // bytes per element
   // staged query type: the index's own for bf16 and int8 (one conflict-free
   // 16-byte shared load per index vector), fp32 otherwise
   using QS = typename std::conditional<
@@ -184,7 +190,7 @@ __global__ void __launch_bounds__(THREADS) tilemax_kernel(
   __syncthreads();
 
   const int nvec = D / M::PER_VEC;
-  const size_t row_bytes = (size_t)D * (MODE == 0 ? 4 : (MODE == 1 ? 2 : 1));
+  const size_t row_bytes = (size_t)D * M::ELEM;
   const unsigned char* base = static_cast<const unsigned char*>(index);
   const int tile0 = blockIdx.x * tpb;
 
@@ -303,15 +309,17 @@ __host__ __device__ constexpr size_t mma_smem(int QB, int row_bytes, int tile) {
   return (size_t)QB * mma_ldq(row_bytes) + 2 * sizeof(float) * QB * mma_stage_stride(tile);
 }
 
-// MODE 0: fp32 index (3xTF32 on m16n8k8); 1: bf16 index (m16n8k16).
-// NT query tiles of 8: QB = 8 * NT queries a block (blockIdx.y).
+// MODE 0: fp32 index (3xTF32 on m16n8k8); 1: bf16 index (m16n8k16); 2: int8
+// index (m16n8k32, scaled by `scales` per row). NT query tiles of 8: QB = 8 *
+// NT queries a block (blockIdx.y).
 template <int MODE, int NT>
 __global__ void __launch_bounds__(MMA_THREADS, 1) tilemax_mma_kernel(
     const unsigned char* __restrict__ queries, const unsigned char* __restrict__ index,
-    float* __restrict__ tmax, float* __restrict__ gmax, int Q, int N, int D, int tile,
-    int group, int nt, int ng, int unit_rows, long long units) {
+    const float* __restrict__ scales, float* __restrict__ tmax, float* __restrict__ gmax, int Q,
+    int N, int D, int tile, int group, int nt, int ng, int unit_rows, long long units) {
+  using Acc = typename Mode<MODE>::Acc;
   constexpr int QB = 8 * NT;
-  const int row_bytes = D * (MODE == 0 ? 4 : 2);
+  const int row_bytes = D * Mode<MODE>::ELEM;
   const int ldq = mma_ldq(row_bytes);
   const int nc = row_bytes / CHUNK;  // k-chunks per row
   const int tpr = ROUND_ROWS / tile;  // tiles per round: 16 or 32
@@ -362,21 +370,38 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) tilemax_mma_kernel(
     }
   };
 
-  float acc[RF][NT][4];
+  Acc acc[RF][NT][4];
 #pragma unroll
   for (int f = 0; f < RF; ++f)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0;
+
+  // int8: the scales of rows g and g + 8 of each fragment of round r, loaded
+  // as the round's first k-chunk is computed: nc - 1 chunks ahead of the
+  // epilogue, and before the next round's, so one set serves any nc. Rows at
+  // or past N (zero fragments, sums 0) read no scale.
+  float sc[RF][2];
+  auto load_scales = [&](int r) {
+    const long long r0 = warp_row + (long long)r * ROUND_ROWS;
+#pragma unroll
+    for (int f = 0; f < RF; ++f)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = r0 + f * 16 + h * 8;
+        sc[f][h] = row < N ? __ldg(scales + row) : 0.f;
+      }
+  };
 
   // one k-chunk: 2 mma k-steps per fragment and query tile. The words
   // {x, y, z, w} of a lane's 16 bytes of a row are k-step 0's A columns
-  // (2t | t) and (2t + 8 | t + 4) in x and y, k-step 1's in z and w (bf16 |
-  // fp32); the same words of its 16 bytes of a query row are B at the same k.
+  // (2t | 4t | t) and (2t + 8 | 4t + 16 | t + 4) in x and y, k-step 1's in z
+  // and w (bf16 | int8 | fp32); the same words of its 16 bytes of a query row
+  // are B at the same k.
   auto compute = [&](const uint4 (&src)[RF][2], int c) {
     const unsigned char* qrow = qs + (size_t)g * ldq + c * CHUNK + t * 16;
-    if constexpr (MODE == 1) {
+    if constexpr (MODE != 0) {
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const uint4 b = *reinterpret_cast<const uint4*>(qrow + (size_t)j * 8 * ldq);
@@ -384,8 +409,13 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) tilemax_mma_kernel(
         for (int f = 0; f < RF; ++f) {
           const uint32_t a0[4] = {src[f][0].x, src[f][1].x, src[f][0].y, src[f][1].y};
           const uint32_t a1[4] = {src[f][0].z, src[f][1].z, src[f][0].w, src[f][1].w};
-          hopper::mma_bf16(acc[f][j], a0, b.x, b.y);
-          hopper::mma_bf16(acc[f][j], a1, b.z, b.w);
+          if constexpr (MODE == 1) {
+            hopper::mma_bf16(acc[f][j], a0, b.x, b.y);
+            hopper::mma_bf16(acc[f][j], a1, b.z, b.w);
+          } else {
+            hopper::mma_s8(acc[f][j], a0, b.x, b.y);
+            hopper::mma_s8(acc[f][j], a1, b.z, b.w);
+          }
         }
       }
     } else {
@@ -429,15 +459,22 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) tilemax_mma_kernel(
       const int frag = warp * RF + f;  // fragment of the round
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        // c[0], c[1]: row g, query columns 2t, 2t + 1; c[2], c[3]: row g + 8
+        // c[0], c[1]: row g, query columns 2t, 2t + 1; c[2], c[3]: row g + 8.
+        // int8: float(sum) * scale[row], one rounding, as the plain version
+        float c[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (MODE == 2) c[e] = __int2float_rn(acc[f][j][e]) * sc[f][e >> 1];
+          else c[e] = acc[f][j][e];
+        }
         float m[4];
         if (tile == 16) {
-          m[0] = fmaxf(acc[f][j][0], acc[f][j][2]);
-          m[1] = fmaxf(acc[f][j][1], acc[f][j][3]);
+          m[0] = fmaxf(c[0], c[2]);
+          m[1] = fmaxf(c[1], c[3]);
           xor_max<2>(m);
         } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) m[e] = acc[f][j][e];
+          for (int e = 0; e < 4; ++e) m[e] = c[e];
           xor_max<4>(m);
         }
         if (g == j) {  // each row group writes one query tile's maxima
@@ -453,7 +490,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) tilemax_mma_kernel(
           }
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[f][j][e] = 0;
       }
     }
     __syncthreads();
@@ -481,6 +518,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) tilemax_mma_kernel(
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
       if (i0 + s < total) {  // uniform across the block
+        if constexpr (MODE == 2) {
+          if (cur_c == 0) load_scales(cur_r);
+        }
         compute(a[s], cur_c);
         load(a[s]);  // the chunk STAGES ahead, into the registers just used
         if (++cur_c == nc) {
@@ -494,10 +534,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) tilemax_mma_kernel(
 }
 
 template <int MODE, int NT>
-cudaError_t launch_mma_nt(const void* q, const void* index, float* tmax, float* gmax, int Q,
-                          int N, int D, int tile, int group, int unit_rows, int grid_x,
-                          cudaStream_t stream) {
-  const int row_bytes = D * (MODE == 0 ? 4 : 2);
+cudaError_t launch_mma_nt(const void* q, const void* index, const float* scales, float* tmax,
+                          float* gmax, int Q, int N, int D, int tile, int group, int unit_rows,
+                          int grid_x, cudaStream_t stream) {
+  const int row_bytes = D * Mode<MODE>::ELEM;
   const int nt = (int)(((long long)N + tile - 1) / tile);
   const int ng = gmax ? (nt + group - 1) / group : 1;
   const long long units = ((long long)nt * tile + unit_rows - 1) / unit_rows;
@@ -508,25 +548,25 @@ cudaError_t launch_mma_nt(const void* q, const void* index, float* tmax, float* 
   if (err != cudaSuccess) return err;
   dim3 grid(grid_x, (Q + 8 * NT - 1) / (8 * NT));
   kern<<<grid, MMA_THREADS, smem, stream>>>(static_cast<const unsigned char*>(q),
-                                             static_cast<const unsigned char*>(index), tmax, gmax,
-                                             Q, N, D, tile, group, nt, ng, unit_rows, units);
+                                             static_cast<const unsigned char*>(index), scales, tmax,
+                                             gmax, Q, N, D, tile, group, nt, ng, unit_rows, units);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch_mma(const void* q, const void* index, float* tmax, float* gmax, int Q, int N,
-                       int D, int tile, int group, int qb, int unit_rows, int grid_x,
-                       cudaStream_t stream) {
-  const int row_bytes = D * (MODE == 0 ? 4 : 2);
+cudaError_t launch_mma(const void* q, const void* index, const float* scales, float* tmax,
+                       float* gmax, int Q, int N, int D, int tile, int group, int qb,
+                       int unit_rows, int grid_x, cudaStream_t stream) {
+  const int row_bytes = D * Mode<MODE>::ELEM;
   // the plan's rules, checked again: tile 8 or 16, rows of whole k-chunks,
   // units of whole rounds and whole groups, a 16-byte aligned query block
   if ((tile != 8 && tile != 16) || row_bytes % CHUNK != 0 || unit_rows < ROUND_ROWS ||
       unit_rows % ROUND_ROWS != 0 || (gmax && unit_rows % (group * tile) != 0) ||
       reinterpret_cast<uintptr_t>(q) % 16 != 0 || (Q + qb - 1) / qb > 65535)
     return cudaErrorInvalidValue;
-  if (qb == 16) return launch_mma_nt<MODE, 2>(q, index, tmax, gmax, Q, N, D, tile, group, unit_rows, grid_x, stream);
-  if (qb == 32) return launch_mma_nt<MODE, 4>(q, index, tmax, gmax, Q, N, D, tile, group, unit_rows, grid_x, stream);
-  if (qb == 64) return launch_mma_nt<MODE, 8>(q, index, tmax, gmax, Q, N, D, tile, group, unit_rows, grid_x, stream);
+  if (qb == 16) return launch_mma_nt<MODE, 2>(q, index, scales, tmax, gmax, Q, N, D, tile, group, unit_rows, grid_x, stream);
+  if (qb == 32) return launch_mma_nt<MODE, 4>(q, index, scales, tmax, gmax, Q, N, D, tile, group, unit_rows, grid_x, stream);
+  if (qb == 64) return launch_mma_nt<MODE, 8>(q, index, scales, tmax, gmax, Q, N, D, tile, group, unit_rows, grid_x, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -550,8 +590,8 @@ extern "C" int tilemax_fwd(const void* queries, const void* index, void* tmax, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* t = static_cast<float*>(tmax);
   if (body == MMA_BODY) {
-    if (index_dtype == 0) return (int)launch_mma<0>(queries, index, t, nullptr, Q, N, D, tile, 1, qb, unit_rows, grid_x, st);
-    if (index_dtype == 1) return (int)launch_mma<1>(queries, index, t, nullptr, Q, N, D, tile, 1, qb, unit_rows, grid_x, st);
+    if (index_dtype == 0) return (int)launch_mma<0>(queries, index, nullptr, t, nullptr, Q, N, D, tile, 1, qb, unit_rows, grid_x, st);
+    if (index_dtype == 1) return (int)launch_mma<1>(queries, index, nullptr, t, nullptr, Q, N, D, tile, 1, qb, unit_rows, grid_x, st);
     return (int)cudaErrorInvalidValue;
   }
   if (body != 0) return (int)cudaErrorInvalidValue;
@@ -572,8 +612,8 @@ extern "C" int tilemax_sup_fwd(const void* queries, const void* index, void* tma
   float* t = static_cast<float*>(tmax);
   float* g = static_cast<float*>(gmax);
   if (body == MMA_BODY) {
-    if (index_dtype == 0) return (int)launch_mma<0>(queries, index, t, g, Q, N, D, tile, group, qb, unit_rows, grid_x, st);
-    if (index_dtype == 1) return (int)launch_mma<1>(queries, index, t, g, Q, N, D, tile, group, qb, unit_rows, grid_x, st);
+    if (index_dtype == 0) return (int)launch_mma<0>(queries, index, nullptr, t, g, Q, N, D, tile, group, qb, unit_rows, grid_x, st);
+    if (index_dtype == 1) return (int)launch_mma<1>(queries, index, nullptr, t, g, Q, N, D, tile, group, qb, unit_rows, grid_x, st);
     return (int)cudaErrorInvalidValue;
   }
   if (body != 0) return (int)cudaErrorInvalidValue;
@@ -582,16 +622,20 @@ extern "C" int tilemax_sup_fwd(const void* queries, const void* index, void* tma
   return (int)cudaErrorInvalidValue;
 }
 
-// int8 queries (Q, D) and values (N, D), fp32 scales (N,); the exact int32
-// dot by __dp4a (the TPU kernel's MXU operand choice has no counterpart
-// here). D a multiple of 16, <= 1024.
+// As tilemax_sup_fwd over an int8 index: int8 queries (Q, D) and values
+// (N, D), fp32 scales (N,); the exact int32 dot (__dp4a on the cuda_core
+// body, mma.sync m16n8k32 s8 on the mma body; the TPU kernel's MXU operand
+// choice has no counterpart here). D a multiple of 16, <= 1024.
 extern "C" int tilemax_sup_q8_fwd(const void* queries, const void* values, const void* scales,
                                   void* tmax, void* gmax, int Q, int N, int D, int tile,
-                                  int group, void* stream) {
+                                  int group, int body, int qb, int unit_rows, int grid_x,
+                                  void* stream) {
   if (bad_shape(Q, N, D, tile, group, 16) || D > 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scales);
   float* t = static_cast<float*>(tmax);
   float* g = static_cast<float*>(gmax);
+  if (body == MMA_BODY) return (int)launch_mma<2>(queries, values, s, t, g, Q, N, D, tile, group, qb, unit_rows, grid_x, st);
+  if (body != 0) return (int)cudaErrorInvalidValue;
   return (int)launch<2>(queries, values, s, t, g, Q, N, D, tile, group, st);
 }

@@ -6,9 +6,9 @@ Port of ``clip_lora_match_tpu/ops/retrieval_topk.py``. ``topk_retrieve``
 index in fp32, and returns (scores (Q, k) fp32 descending, ids (Q, k) int32),
 ties to the lower row id. At HBM scale ``topk_retrieve_twopass`` and
 ``topk_retrieve_q8`` (int8 index) run pass 1 as tile maxima
-(``csrc/retrieval_tilemax.cu``: ``tilemax``, ``tilemax_sup`` on the body
-``tilemax_plan`` picks, ``tilemax_sup_q8``), then passes 2 and 3 in
-PyTorch. ``topk_retrieve_auto`` keeps the JAX package's size bands.
+(``csrc/retrieval_tilemax.cu``: ``tilemax``, ``tilemax_sup``,
+``tilemax_sup_q8``, each on the body ``tilemax_plan`` picks), then passes 2
+and 3 in PyTorch. ``topk_retrieve_auto`` keeps the JAX package's size bands.
 """
 
 from __future__ import annotations
@@ -308,11 +308,7 @@ def _pass1_out(q, N, tile, group=None):
     return tmax, gmax
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-# -- the fp32/bf16 tile-max kernels' launch plan (csrc/retrieval_tilemax.cu) -----
+# -- the tile-max kernels' launch plan (csrc/retrieval_tilemax.cu) --------------
 
 # From this many queries on, pass 1 takes the mma body (the crossover measured
 # by ``chip_smoke.py --only tilemax``; PERF.md §6). Below it, the CUDA-core
@@ -322,15 +318,17 @@ _MMA_TILES = (8, 16)
 _MMA_ROUND = 256  # rows of one round of an mma block: 8 warps x 2 fragments x 16
 _MMA_CHUNK = 64  # bytes of a row per k-chunk
 _PASS1_BODIES = {"cuda_core": 0, "mma": 1}
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 
 
 class TilemaxPlan(NamedTuple):
-    """How one ``tilemax``/``tilemax_sup`` call runs: the body (``mma``:
-    tensor cores, a query block of 16, 32 or 64 staged once, the index read
-    once per query block; ``cuda_core``: FMA, a query block of 1-8), the
-    query block, the rows of one unit of work (mma: whole rounds and whole
-    groups; cuda_core: one block's tiles), the most rows one block takes, the
-    grid (index blocks, query blocks) and a block's shared memory."""
+    """How one pass-1 call (``tilemax``, ``tilemax_sup``, ``tilemax_sup_q8``)
+    runs: the body (``mma``: tensor cores, a query block of 16, 32 or 64
+    staged once, the index read once per query block; ``cuda_core``: FMA or
+    ``__dp4a``, a query block of 1-8), the query block, the rows of one unit
+    of work (mma: whole rounds and whole groups; cuda_core: one block's
+    tiles), the most rows one block takes, the grid (index blocks, query
+    blocks) and a block's shared memory."""
 
     body: str
     qb: int
@@ -348,16 +346,15 @@ def _mma_smem(qb: int, row_bytes: int, tile: int) -> int:
 
 def tilemax_plan(Q: int, N: int, D: int, dtype, tile: int, group: Optional[int],
                  sms: int) -> TilemaxPlan:
-    """The launch plan of pass 1 over an fp32 or bf16 index (``group``: None
-    for ``tilemax``). Q >= ``TILEMAX_MMA_MIN_Q`` with a tile of 8 or 16 and
+    """The launch plan of pass 1 over an fp32, bf16 or int8 index (``group``:
+    None for ``tilemax``). Q >= ``TILEMAX_MMA_MIN_Q`` with a tile of 8 or 16 and
     rows of whole 64-byte k-chunks takes the mma body on the smallest query
     block of 16, 32, 64 that holds Q (64 above), halved while it does not fit
     ``SMEM_BLOCK`` (fp32 D = 1024: 32); the grid holds one block per SM
     divided among the query blocks, each taking an equal share of whole units.
     Every other shape, or one no query block fits, takes the CUDA-core body:
     a query block of 1, 2, 4 or 8, one block per ``group`` (else 16) tiles."""
-    elem = 4 if dtype == torch.float32 else 2
-    row_bytes = D * elem
+    row_bytes = D * _ELEM_BYTES[dtype]
     nt = -(-N // tile)
     if Q >= TILEMAX_MMA_MIN_Q and tile in _MMA_TILES and row_bytes % _MMA_CHUNK == 0:
         qb = next(b for b in (16, 32, 64) if b >= min(Q, 64))
@@ -378,28 +375,36 @@ def tilemax_plan(Q: int, N: int, D: int, dtype, tile: int, group: Optional[int],
 
 # tilemax_fwd(queries, index, tmax, Q, N, D, tile, index_dtype, body, qb,
 #             unit_rows, grid_x, stream); tilemax_sup_fwd adds gmax after
-# tmax and group after tile
+# tmax and group after tile; tilemax_sup_q8_fwd(queries, values, scales, tmax,
+# gmax, Q, N, D, tile, group, body, qb, unit_rows, grid_x, stream)
 _TILEMAX_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _TILEMAX_SUP_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+_TILEMAX_SUP_Q8_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 
 
-def _pass1_launch(qc, index, tile: int, group: Optional[int], plan: TilemaxPlan):
-    """Launch ``tilemax_fwd`` (``group`` None) or ``tilemax_sup_fwd`` on CUDA
-    tensors with ``plan``; returns (tmax, gmax or None)."""
+def _pass1_launch(qc, index, tile: int, group: Optional[int], plan: TilemaxPlan, scales=None):
+    """Launch ``tilemax_fwd`` (``group`` None), ``tilemax_sup_fwd`` or, given
+    ``scales``, ``tilemax_sup_q8_fwd`` on CUDA tensors with ``plan``; returns
+    (tmax, gmax or None)."""
     (Q, D), N = qc.shape, index.shape[0]
     if plan.body == "mma" and qc.data_ptr() % 16:  # the query block is staged in 16-byte vectors
         qc = qc.clone()
     tmax, gmax = _pass1_out(qc, N, tile, group)
-    how = (_DTYPES[index.dtype], _PASS1_BODIES[plan.body], plan.qb, plan.unit, plan.grid[0],
-           _build.stream_ptr(qc))
-    if group is None:
+    how = (_PASS1_BODIES[plan.body], plan.qb, plan.unit, plan.grid[0], _build.stream_ptr(qc))
+    if scales is not None:
+        rc = _build.function("retrieval_tilemax", "tilemax_sup_q8_fwd", _TILEMAX_SUP_Q8_ARGS)(
+            qc.data_ptr(), index.data_ptr(), scales.data_ptr(), tmax.data_ptr(), gmax.data_ptr(),
+            Q, N, D, tile, group, *how)
+        _build.check(rc, "tilemax_sup_q8_fwd")
+    elif group is None:
         rc = _build.function("retrieval_tilemax", "tilemax_fwd", _TILEMAX_ARGS)(
-            qc.data_ptr(), index.data_ptr(), tmax.data_ptr(), Q, N, D, tile, *how)
+            qc.data_ptr(), index.data_ptr(), tmax.data_ptr(), Q, N, D, tile,
+            _DTYPES[index.dtype], *how)
         _build.check(rc, "tilemax_fwd")
     else:
         rc = _build.function("retrieval_tilemax", "tilemax_sup_fwd", _TILEMAX_SUP_ARGS)(
             qc.data_ptr(), index.data_ptr(), tmax.data_ptr(), gmax.data_ptr(), Q, N, D, tile,
-            group, *how)
+            group, _DTYPES[index.dtype], *how)
         _build.check(rc, "tilemax_sup_fwd")
     return tmax, gmax
 
@@ -450,29 +455,28 @@ tilemax_sup.bodies = dict.fromkeys(_PASS1_BODIES, 0)
 def tilemax_sup_q8(qq, values, scales, tile: int = 16, group: int = HIER_GROUP,
                    mxu: str = "int8"):
     """``tilemax_sup`` over an int8 index: float(int32 dot) times the row's
-    scale (the query's scale left out), tile and group maxima. ``mxu``
-    (``"int8"`` or ``"bf16"``) chose the TPU's MXU operand type; it is checked
-    for parity and does not apply on CUDA, where the kernel always takes the
-    exact int32 dot by ``__dp4a``."""
+    scale (the query's scale left out), tile and group maxima, bit-equal to
+    ``tilemax_sup_q8_plain``. CUDA tensors launch the kernel on the body
+    ``tilemax_plan`` picks, both taking the exact int32 dot (``__dp4a`` on
+    the CUDA-core body, ``mma.sync`` s8 on the mma body); ``launches`` counts
+    the calls, ``bodies`` the body each took. ``mxu`` (``"int8"`` or
+    ``"bf16"``) chose the TPU's MXU operand type; it is checked for parity
+    and does not apply on CUDA."""
     if mxu not in _Q8_MXU:
         raise ValueError(f"bad mxu mode {mxu!r}")
     _check_pass1("tilemax_sup_q8", qq, values, tile, group, scales)
     if qq.device.type == "cpu":
         return tilemax_sup_q8_plain(qq, values, scales, tile, group)
     qq = qq.contiguous()
-    (Q, D), N = qq.shape, values.shape[0]
-    tmax, gmax = _pass1_out(qq, N, tile, group)
-    rc = _build.load("retrieval_tilemax").tilemax_sup_q8_fwd(
-        _ptr(qq), _ptr(values), _ptr(scales), _ptr(tmax), _ptr(gmax),
-        ctypes.c_int(Q), ctypes.c_int(N), ctypes.c_int(D), ctypes.c_int(tile),
-        ctypes.c_int(group), ctypes.c_void_p(_build.stream_ptr(qq)),
-    )
-    _build.check(rc, "tilemax_sup_q8_fwd")
+    plan = _pass1_plan(qq, values, tile, group)
+    tmax, gmax = _pass1_launch(qq, values, tile, group, plan, scales)
     tilemax_sup_q8.launches += 1
+    tilemax_sup_q8.bodies[plan.body] += 1
     return tmax, gmax
 
 
 tilemax_sup_q8.launches = 0
+tilemax_sup_q8.bodies = dict.fromkeys(_PASS1_BODIES, 0)
 
 
 def _slack(N: int, tile: int, n_valid) -> tuple[int, int, int]:

@@ -594,15 +594,59 @@ def test_tilemax_pad_rows_score_zero(gen, Q, tile, dtype):
     torch.testing.assert_close(tmax, R.tilemax_plain(qc, index, tile), atol=1e-5, rtol=0)
 
 
+# Q across the body switch and ragged query blocks (17, 33, 65, 130); N no
+# multiple of 256 nor of a group's rows; D from one k-chunk (64: a round's
+# scales loaded in the step of its epilogue) to the 1024 of the exactness
+# bound; groups of 3, 8 and 16
 @pytest.mark.parametrize("mxu", ["int8", "bf16"])
 @pytest.mark.parametrize("Q,N,D,group", [(1, 4096, 512, 16), (7, 8692, 1024, 16), (64, 70_009, 512, 8),
-                                          (5, 17, 128, 16)])
+                                          (5, 17, 128, 16), (9, 4099, 512, 16), (16, 10_007, 768, 8),
+                                          (17, 8692, 1024, 16), (33, 70_009, 512, 16),
+                                          (64, 33_333, 768, 16), (65, 20_011, 1024, 8),
+                                          (130, 30_011, 512, 3), (16, 5003, 64, 16), (64, 4097, 128, 16),
+                                          (64, 1_048_586, 512, 16)])
 def test_tilemax_sup_q8_kernel_is_bit_equal(gen, Q, N, D, group, mxu):
     values, scales = R.quantize_index_int8(_unit_index(gen, N, D))
     qq, _ = R._quantize_queries(_rand(gen, Q, D))
+    before = dict(R.tilemax_sup_q8.bodies)
     tmax, gmax = R.tilemax_sup_q8(qq, values, scales, 16, group, mxu)
+    p = _assert_body(R.tilemax_sup_q8, before, qq, values, 16, group)
+    assert p.body == ("mma" if Q >= 9 and D % 64 == 0 else "cuda_core")
     rt, rg = R.tilemax_sup_q8_plain(qq, values, scales, 16, group)
     torch.cuda.synchronize()
+    assert torch.equal(tmax, rt) and torch.equal(gmax, rg)
+
+
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("D", [512, 1024])
+def test_tilemax_sup_q8_both_bodies_are_bit_equal_at_q16(gen, D, tile):
+    """Each body forced through the private launcher with its own plan."""
+    N, group = 70_009, 16
+    values, scales = R.quantize_index_int8(_unit_index(gen, N, D))
+    qq, _ = R._quantize_queries(_rand(gen, 16, D))
+    rt, rg = R.tilemax_sup_q8_plain(qq, values, scales, tile, group)
+    mma = R.tilemax_plan(16, N, D, torch.int8, tile, group, _build.sm_count(qq.device))
+    core = R.tilemax_plan(8, N, D, torch.int8, tile, group, _build.sm_count(qq.device))
+    assert (mma.body, core.body) == ("mma", "cuda_core")
+    for p in (mma, core):  # the CUDA-core body takes its query block and grid from Q
+        tmax, gmax = R._pass1_launch(qq, values, tile, group, p, scales)
+        torch.cuda.synchronize()
+        assert torch.equal(tmax, rt) and torch.equal(gmax, rg), p.body
+
+
+@pytest.mark.parametrize("Q,tile", [(1, 16), (1, 8), (16, 16), (16, 8), (64, 16), (64, 8)])
+def test_tilemax_sup_q8_pad_rows_score_zero(gen, Q, tile):
+    """Every real row scores below 0, so the last tile's maximum is its pad
+    rows' 0 and every other tile's is negative, on both bodies."""
+    N, D = 64 * tile + 3, 512
+    values, scales = R.quantize_index_int8(
+        -torch.nn.functional.normalize(_rand(gen, N, D).abs() + 0.1, dim=1))
+    qq, _ = R._quantize_queries(_rand(gen, Q, D).abs() + 0.1)
+    tmax, gmax = R.tilemax_sup_q8(qq, values, scales, tile, 16)
+    torch.cuda.synchronize()
+    assert (tmax[:, -1] == 0).all() and (tmax[:, :-1] < 0).all()
+    assert (gmax[:, -1] == 0).all() and (gmax[:, :-1] < 0).all()
+    rt, rg = R.tilemax_sup_q8_plain(qq, values, scales, tile, 16)
     assert torch.equal(tmax, rt) and torch.equal(gmax, rg)
 
 
@@ -637,7 +681,11 @@ def test_twopass_kernel_route_matches_plain_route(gen, Q, N, k, n_valid, group, 
 def test_q8_kernel_route_equals_plain_route(gen, Q, N, D, k, n_valid):
     values, scales = R.quantize_index_int8(_unit_index(gen, N, D))
     queries = _rand(gen, Q, D)
+    before = dict(R.tilemax_sup_q8.bodies)
     s, i = R.topk_retrieve_q8(queries, values, scales, k, n_valid=n_valid, group=16)
+    body = "mma" if Q >= 9 else "cuda_core"  # Q = 64 reads the index once, on the tensor cores
+    assert {b: R.tilemax_sup_q8.bodies[b] - before[b] for b in before} == {
+        b: int(b == body) for b in before}
     rs, ri = R.topk_retrieve_q8(queries, values, scales, k, n_valid=n_valid, pallas_pass1=False)
     torch.cuda.synchronize()
     assert torch.equal(s, rs)
