@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only topk_retrieve   # build and check one kernel (phase 2 only)
     python3 chip_smoke.py --only tilemax         # the three pass-1 kernels and the bodies' crossover
+    python3 chip_smoke.py --stop-after 3         # phases 1-3 (an A/B of the main path's latency)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -48,7 +49,23 @@ Phases (any failure raises and exits non-zero):
    self-retrieval, 8 concurrent searches coalesced by the queue, request
    latency, a 32-image batch against the plain fp32 path, device time by
    kernel, the image tower with flash and the fused MLP each on and off, and
-   a report_item through the graph's finder found by the next search.
+   a report_item through the graph's finder found by the next search;
+6. the YOLO crop stage and the HTTP API over phase 3's encoder and index:
+   (a) both committed detectors (yolov8n_synth, yolov8n_real, 320²) on the
+   card in bf16 and fp32 over the 5 custom photos and 6 held-out renders
+   (the synth detector's IoU@0.5 recall >= 0.75, the bf16 top box within
+   IoU 0.9 of the fp32 one with the same class), nms_fixed against its CPU
+   run, n@320 detect latency at B=1 and a seeded YOLOv8-s at 640², B=16;
+   (b) the device crop against its CPU run, SeekerService with
+   use_yolo_crop on disk and on the device (the device crop serving every
+   image query, launch counts), the fused search against the staged one
+   (box, top-5 ids, scores), its latency and host syncs, and
+   FinderService(use_yolo_crop=True); (c) the stdlib HTTP server
+   (serve_background over build_services, a SqliteStore, the 44,446-row
+   index saved to a temp .npz) over real sockets: health, report then
+   search, image and text+image searches, items, 400s, launch counts per
+   text search, 8 concurrent searches in fewer tower passes, and wire
+   against in-process latency.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -828,7 +845,7 @@ def main_path(torch, card: str):
         if not cos.min() >= 0.99:
             raise AssertionError(f"{name} batch: min cosine {cos.min()} < 0.99")
         log(f"{name} batch kernel path (bf16) vs plain path (fp32): min cosine {cos.min():.6f}")
-    return counts, (enc, texts, images, paths)
+    return counts, (enc, texts, images, paths), (index, lat)
 
 
 # ---------------------------------------------------------------------------
@@ -1222,6 +1239,423 @@ def l14_path(torch, card, texts, images, paths):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the YOLO crop stage and the HTTP API
+# ---------------------------------------------------------------------------
+
+YOLO_WEIGHTS = ("models/yolo_synth/yolov8n_synth.npz", "models/yolo_real/yolov8n_real.npz")
+N_RENDERS = 6  # held-out detection renders, random.Random(999), as tests/test_yolo_trained.py
+
+
+def _iou(a, b) -> float:
+    ix1, iy1 = max(a[0], b[0]), max(a[1], b[1])
+    ix2, iy2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(0.0, ix2 - ix1) * max(0.0, iy2 - iy1)
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / max(union, 1e-9)
+
+
+def _renders(tmp: str) -> list:
+    """(path, ground-truth boxes) of the held-out renders, written as PNG."""
+    import random
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import generate_fashion_corpus as gen
+
+    rng = random.Random(999)
+    out = []
+    for i in range(N_RENDERS):
+        img, boxes = gen.render_detect_image(rng, 320, max_objects=1)
+        path = os.path.join(tmp, f"render_{i}.png")
+        img.save(path)
+        out.append((path, boxes))
+    return out
+
+
+def detector_phase(torch, card, paths, renders):
+    """Phase 6 (a): both committed checkpoints on the card in bf16 and fp32,
+    nms_fixed against its CPU run, latency at n@320 B=1 and throughput of a
+    seeded YOLOv8-s at 640² B=16. Returns the synth detector (bf16)."""
+    from PIL import Image
+
+    from clip_lora_match_tpu_torch.models.yolo import yolov8 as Y
+    from clip_lora_match_tpu_torch.models.yolo.postprocess import nms_fixed
+
+    images = [Image.open(p).convert("RGB") for p in list(paths) + [r[0] for r in renders]]
+    dets = {}
+    for weights in YOLO_WEIGHTS:
+        name = os.path.basename(weights)
+        bf16 = Y.load_detector(os.path.join(REPO, weights), device="cuda")
+        fp32 = Y.load_detector(os.path.join(REPO, weights), device="cuda", compute_dtype=torch.float32)
+        on_card = {t.device.type for t in (bf16._params_c["backbone"]["0"]["kernel"],
+                                           fp32._params_c["head"]["levels"][2]["cv3"][2]["bias"])}
+        if on_card != {"cuda"} or bf16.compute_dtype != torch.bfloat16 or bf16.cfg.imgsz != 320:
+            raise AssertionError(f"{name}: parameters on {on_card}, {bf16.compute_dtype}, imgsz {bf16.cfg.imgsz}")
+        found = both = 0
+        worst = 1.0
+        for img in images:
+            d16, d32 = bf16.detect(img, 0.25, 0.45, 5), fp32.detect(img, 0.25, 0.45, 5)
+            found += bool(d16)
+            if d16 and d32:
+                both += 1
+                iou = _iou(d16[0].box, d32[0].box)
+                worst = min(worst, iou)
+                if iou < 0.9 or d16[0].class_id != d32[0].class_id:
+                    raise AssertionError(f"{name}: bf16 top box {d16[0]} vs fp32 {d32[0]} (IoU {iou:.4f})")
+        log(f"phase 6 (a) {name} on the card: detections on {found} of {len(images)} images (5 custom "
+            f"photos, {N_RENDERS} renders); bf16 vs fp32 top box: same class, min IoU {worst:.4f} over "
+            f"{both} images where both detect")
+        dets[name] = (bf16, fp32)
+    bf16, fp32 = dets["yolov8n_synth.npz"]
+
+    hits = total = 0
+    for path, boxes in renders:
+        got = bf16.detect(Image.open(path).convert("RGB"), 0.25, 0.45, 5)
+        for gt in boxes:
+            total += 1
+            hits += any(_iou(gt[:4], d.box) >= 0.5 for d in got)
+    if total < 4 or hits / total < 0.75:
+        raise AssertionError(f"synth detector IoU@0.5 recall {hits}/{total} < 0.75")
+    log(f"phase 6 (a) synth detector (bf16) IoU@0.5 recall on the held-out renders: {hits}/{total}")
+
+    # nms_fixed on the card against its CPU run on the same decoded boxes
+    arr, _, _ = Y.letterbox(Image.open(renders[0][0]).convert("RGB"), 320)
+    with torch.inference_mode():
+        x = torch.from_numpy(arr).permute(2, 0, 1)[None].cuda()
+        boxes, probs = Y.decode_predictions(Y.forward(fp32._params_c, x.contiguous(memory_format=torch.channels_last)))
+        scores, classes = probs.amax(-1), probs.argmax(-1)
+        for agnostic in (False, True):
+            got = nms_fixed(boxes, scores, classes, 0.05, 0.45, max_det=16, agnostic=agnostic)
+            want = nms_fixed(boxes.cpu(), scores.cpu(), classes.cpu(), 0.05, 0.45, max_det=16, agnostic=agnostic)
+            if not all(g.device.type == "cuda" and torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+                raise AssertionError(f"nms_fixed (agnostic={agnostic}): the card's run differs from the CPU's")
+    log(f"phase 6 (a) nms_fixed on the card equals its CPU run over {boxes.shape[1]} decoded boxes "
+        f"(class-aware and agnostic, conf 0.05, {int(got[3].sum())} kept of 16 slots)")
+
+    img = images[0]
+    wall = _host_ms(lambda: bf16.detect(img, 0.25, 0.45, 5))
+    dev = device_ms(torch, lambda: bf16.detect(img, 0.25, 0.45, 5))
+    log(f"phase 6 (a) n@320 detect, B=1 (host letterbox, bf16 forward, decode, NMS, one readback): "
+        f"wall median of 10 {wall:.4f} ms, device {fmt(dev)} ms [{card}]")
+    profile_device_time(torch, "phase 6 (a) n@320 detect", lambda: bf16.detect(img, 0.25, 0.45, 5), wall, card)
+
+    s_det = Y.YoloV8Detector(Y.init_params(SEED, device="cuda"), device="cuda")  # -s, 80 classes, 640²
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    batch = torch.rand(16, 3, 640, 640, device="cuda", generator=gen)
+    call = lambda: s_det.infer(batch, 0.25, 0.45, 5)  # noqa: E731
+    ms = cuda_ms(torch, call, reps=10)
+    dev = device_ms(torch, call, reps=5)
+    log(f"phase 6 (a) seeded YOLOv8-s (80 classes) at 640², B=16, bf16: {ms:.4f} ms per batch "
+        f"({16e3 / ms:.1f} images/s), device {fmt(dev)} ms per batch [{card}]")
+    del s_det, batch
+    return bf16
+
+
+def crop_phase(torch, card, enc, index, paths, renders, det, tmp):
+    """Phase 6 (b): the device crop against its CPU run, the seeker's disk and
+    device crop paths over phase 3's encoder and index, the fused search
+    against the staged one, and the finder's crop. Returns the device
+    seeker run's launches."""
+    import traceback
+    import warnings
+
+    from PIL import Image
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import YoloConfig
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+    from clip_lora_match_tpu_torch.models.yolo.cropper import YoloCropper
+    from clip_lora_match_tpu_torch.models.yolo.device_crop import (
+        crop_embed_pipeline,
+        crop_resize_normalize,
+        make_fused_search,
+    )
+    from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+    from clip_lora_match_tpu_torch.services.finder import FinderConfig, FinderService
+    from clip_lora_match_tpu_torch.services.seeker import SeekerConfig, SeekerService
+
+    photo = np.asarray(Image.open(paths[0]).convert("RGB"), np.float32) / 255.0
+    H, W = photo.shape[:2]
+    boxes = torch.tensor([[0.0, 0.0, W, H], [10.3, 5.7, W - 20.9, H - 30.2], [200.5, 100.25, 215.75, 111.5]])
+    imgs = torch.from_numpy(photo)[None].expand(3, -1, -1, -1)
+    got = crop_resize_normalize(imgs.cuda(), boxes.cuda(), enc.arch.image_size)
+    want = crop_resize_normalize(imgs, boxes, enc.arch.image_size)
+    err = (got.cpu() - want).abs().max().item()
+    if not err <= 1e-4:
+        raise AssertionError(f"crop_resize_normalize: card vs CPU max abs err {err}")
+    log(f"phase 6 (b) crop_resize_normalize on the card vs the CPU ({W}x{H} photo, 3 boxes, out "
+        f"{enc.arch.image_size}): max abs err {err:.3e}")
+
+    queries = list(paths) + [r[0] for r in renders]
+    cropper = YoloCropper(det, YoloConfig(crop_save_dir=os.path.join(tmp, "crops")))
+    emb = {}
+    counts = None
+    for mode in ("disk", "device"):
+        svc = SeekerService(enc, SeekerConfig(use_yolo_crop=True, use_device_crop=mode == "device"),
+                            cropper=cropper, index=index)
+        svc.search_items(image_path=queries[0])  # warm-up
+        svc.device_crops = 0
+        ops.reset_launch_counts()
+        emb[mode] = np.stack([svc._build_query_embedding(None, q) for q in queries])
+        res = [svc.search_items(image_path=q) for q in queries]
+        torch.cuda.synchronize()
+        if mode == "device":
+            counts = ops.launch_counts()
+            if svc.device_crops != 2 * len(queries):
+                raise AssertionError(f"device crop served {svc.device_crops} of {2 * len(queries)} image queries")
+            layers = enc.arch.vision_layers
+            want = {"attention_small": 2 * len(queries) * layers,
+                    "lora_matmul": LORA_PER_LAYER * 2 * len(queries) * layers, "topk_retrieve": len(queries)}
+            if {k: counts[k] for k in want} != want:
+                raise AssertionError(f"device crop seeker launches {counts} != {want}")
+            log(f"phase 6 (b) seeker, use_device_crop: the device crop served all {svc.device_crops} image "
+                f"queries; launches {json.dumps(counts)}")
+        if any(len(r) != 5 for r in res):
+            raise AssertionError(f"seeker ({mode} crop): a query without 5 results")
+        lat = _latency(torch, (("image", lambda: svc.search_items(image_path=queries[-1])),))
+        log(f"phase 6 (b) seeker image request with the {mode} crop, median of 10: {lat['image']:.4f} ms [{card}]")
+    cos = (emb["disk"] * emb["device"]).sum(1)
+    log(f"phase 6 (b) disk vs device crop query embeddings: cosine min {cos.min():.4f} median "
+        f"{np.median(cos):.4f} (the disk path center-crops the saved crop, the device path stretches "
+        f"the box)")
+
+    search = make_fused_search(det, enc, index.embeddings, k=5)
+    strict, photos = 0, []
+    for path in queries:
+        img = Image.open(path).convert("RGB")
+        s, i, box, detected = search(np.asarray(img, np.uint8))
+        q, dets = crop_embed_pipeline(det, enc, img)
+        rs, ri = R.topk_retrieve_auto(torch.from_numpy(q).cuda(), index.embeddings, 5)
+        rs, ri = rs[0].cpu().numpy(), ri[0].cpu().numpy()
+        if path in paths:  # 480x360: the device letterbox resamples otherwise than PIL's
+            photos.append(f"{detected}/{bool(dets)}" + (f" IoU {_iou(box, dets[0].box):.3f}"
+                                                        if detected and dets else ""))
+            continue
+        # a 320² render: both letterboxes are the identity, so both paths see one canvas
+        if detected != bool(dets):
+            raise AssertionError(f"fused search {path}: detected {detected}, staged {len(dets)} boxes")
+        if not detected:  # the full image: resampled on the device here, by PIL in the staged path
+            continue
+        strict += 1
+        if np.abs(box - np.asarray(dets[0].box)).max() > 1e-3 or list(i) != list(ri) or np.abs(s - rs).max() > 1e-3:
+            raise AssertionError(f"fused search {path}: box {box} ids {i} scores {s}; staged "
+                                 f"{dets[0].box} {ri} {rs}")
+    if strict < 3:
+        raise AssertionError(f"fused search: only {strict} renders detected")
+    log(f"phase 6 (b) fused search: the staged path's box, top-5 ids and scores (within 1e-3) on "
+        f"{strict} detected renders; on the photos fused/staged detected and box IoU: {photos}")
+    arr = np.asarray(Image.open(queries[-1]).convert("RGB"), np.uint8)
+    ops.reset_launch_counts()
+    search(arr)
+    fused_counts = ops.launch_counts()
+    if fused_counts["topk_retrieve"] != 1 or fused_counts["attention_small"] != enc.arch.vision_layers:
+        raise AssertionError(f"fused search launches {fused_counts}")
+    lat = _latency(torch, (("fused", lambda: search(arr)),
+                           ("staged", lambda: crop_embed_pipeline(det, enc, Image.open(queries[-1]).convert("RGB"))),))
+    torch.cuda.synchronize()
+    syncs = []
+    inside = [False]  # setting the debug mode synchronizes itself: count the call's only
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if inside[0] and "synchroniz" in str(message):
+            # the Python frames that led to the synchronizing call, innermost
+            # last, without this hook's and the warnings module's
+            frames = [f for f in traceback.extract_stack()[:-1] if not f.filename.endswith("warnings.py")]
+            syncs.append(" <- ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                                     for f in reversed(frames[-3:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside[0] = True
+            search(arr)
+            inside[0] = False
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {w: syncs.count(w) for w in sorted(set(syncs))}
+    log(f"phase 6 (b) fused search (detect, crop, B/32 tower, top-k over {len(index)} rows): median of "
+        f"10 {lat['fused']:.4f} ms, staged crop_embed_pipeline alone {lat['staged']:.4f} ms; "
+        f"host syncs in one call: {len(syncs)}: {json.dumps(where)} [{card}]")
+    profile_device_time(torch, "phase 6 (b) fused search", lambda: search(arr), lat["fused"], card)
+
+    finder = FinderService(enc, FinderConfig(
+        index_path=os.path.join(tmp, "finder", "index.npz"), reported_images_dir=os.path.join(tmp, "reported"),
+        use_yolo_crop=True), cropper=cropper, index=EmbeddingIndex(dim=enc.arch.projection_dim, device="cuda"))
+    rep = finder.report_item(paths[1], "dompet coklat", location="kantin teknik")
+    if rep.index_row != 0 or not rep.crop_used or not os.path.exists(rep.stored_image_path):
+        raise AssertionError(f"finder with the crop stage: {rep}")
+    log(f"phase 6 (b) FinderService(use_yolo_crop=True): row {rep.index_row}, crop_used {rep.crop_used}, "
+        f"crops {sorted(os.listdir(cropper.cfg.crop_save_dir))[-1:]}")
+    return counts
+
+
+def _multipart(fields=None, files=None, boundary="chipsmokeboundary"):
+    out = bytearray()
+    for k, v in (fields or {}).items():
+        out += f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+    for k, (filename, ctype, data) in (files or {}).items():
+        out += (f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"; filename="{filename}"\r\n'
+                f"Content-Type: {ctype}\r\n\r\n").encode() + data + b"\r\n"
+    out += f"--{boundary}--\r\n".encode()
+    return bytes(out), f"multipart/form-data; boundary={boundary}"
+
+
+def _http(url, body=None, ctype=None):
+    """(status, parsed JSON) over a real socket; 4xx/5xx do not raise."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    if ctype:
+        req.add_header("Content-Type", ctype)
+    try:
+        resp = urllib.request.urlopen(req, timeout=120)
+    except urllib.error.HTTPError as e:
+        resp = e
+    with resp:
+        return resp.status, json.loads(resp.read())
+
+
+def http_phase(torch, card, enc, index, texts, paths, lat3, tmp):
+    """Phase 6 (c): the port's stdlib server over build_services on the card.
+    Returns the launches of its counted text searches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.api.http_server import create_server, serve_background
+    from clip_lora_match_tpu_torch.db.store import SqliteStore
+
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+
+    # phase 3's rows with their metadata: the seeded rows, then the custom
+    # items' 5 text rows and 5 image rows
+    seeded = len(index) - 2 * len(texts)
+    index_path = os.path.join(tmp, "index", "items_index.npz")
+    os.makedirs(os.path.dirname(index_path))
+    EmbeddingIndex(index.embeddings_np(), [""] * seeded + list(paths) * 2, [""] * seeded + list(texts) * 2,
+                   device="cpu").save(index_path)
+    server = create_server("127.0.0.1", 0, encoder=enc, store=SqliteStore(os.path.join(tmp, "found.sqlite")),
+                           data_dir=tmp, index_path=index_path)
+    graph = server.RequestHandlerClass.graph
+    thread = serve_background(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        if len(graph.seeker.index) != len(index) or graph.seeker.index.embeddings.device.type != "cuda":
+            raise AssertionError(f"server index: {len(graph.seeker.index)} rows")
+        if _http(f"{base}/health") != (200, {"status": "ok"}):
+            raise AssertionError("health")
+        photo = open(paths[2], "rb").read()
+        desc = "jam tangan silver tertinggal di lab kimia lantai dua"
+        status, rep = _http(f"{base}/api/report", *_multipart(
+            {"description": desc, "reporter": "smoke"}, {"image": (os.path.basename(paths[2]), "image/jpeg", photo)}))
+        if status != 200 or rep["description"] != desc:
+            raise AssertionError(f"report: {status} {rep}")
+        status, res = _http(f"{base}/api/search", *_multipart({"description": desc}))
+        top = res["results"][0] if status == 200 and res["results"] else {}
+        if top.get("image_path") != rep["image_path"] or top.get("text") != desc or top.get("score", 0) < 0.99:
+            raise AssertionError(f"search after report: {status} {res}")
+        upload = {"image": ("query.jpg", "image/jpeg", photo)}
+        for fields in ({}, {"description": texts[2]}):
+            status, res = _http(f"{base}/api/search", *_multipart(fields, upload))
+            if status != 200 or len(res["results"]) != 5 or os.path.exists(res["query_image_path"]):
+                raise AssertionError(f"image search {fields}: {status} {res}")
+        status, items = _http(f"{base}/api/items")
+        if status != 200 or not items or items[0]["id"] != rep["id"] or items[0]["description"] != desc:
+            raise AssertionError(f"items: {status} {items}")
+        bad = (_http(f"{base}/api/search", *_multipart({"description": " "}))[0],
+               _http(f"{base}/api/report", *_multipart({"description": "x"},
+                                                        {"image": ("a.txt", "text/plain", b"bukan gambar")}))[0])
+        if bad != (400, 400):
+            raise AssertionError(f"validation: {bad}")
+        log(f"phase 6 (c) HTTP over {base}: health; report row {rep['id']} is the next search's top 1 "
+            f"(score {top['score']:.6f}); image and text+image searches; items lists the report first; "
+            f"missing fields and a non-image upload give {bad}")
+
+        # -- the counted run: text searches over the wire -----------------------
+        n = 5
+        ops.reset_launch_counts()
+        for t in texts[:n]:
+            if _http(f"{base}/api/search", *_multipart({"description": t}))[0] != 200:
+                raise AssertionError("text search")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        layers = enc.arch.text_layers
+        want = {"attention_small": n * layers, "lora_matmul": LORA_PER_LAYER * n * layers, "topk_retrieve": n,
+                "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0, **OFF_BY_DEFAULT}
+        if counts != want:
+            raise AssertionError(f"HTTP text search launches {counts} != {want}")
+        log(f"phase 6 (c) launches over {n} HTTP text searches: {json.dumps(counts)} (per search "
+            f"attention_small {layers}, lora_matmul {LORA_PER_LAYER * layers}, topk_retrieve 1, as phase 3's "
+            f"in-process text request)")
+
+        many = [f"{texts[i % len(texts)]} nomor {i}" for i in range(8)]
+        sequential = [_http(f"{base}/api/search", *_multipart({"description": t}))[1] for t in many]
+        queue = graph.seeker.encoder.queue
+        linger, queue.linger = queue.linger, 0.5
+        try:
+            ops.reset_launch_counts()
+            with ThreadPoolExecutor(8) as pool:
+                futures = [pool.submit(_http, f"{base}/api/search", *_multipart({"description": t})) for t in many]
+                concurrent = [f.result(timeout=300) for f in futures]
+            torch.cuda.synchronize()
+        finally:
+            queue.linger = linger
+        passes = ops.launch_counts()["attention_small"] // layers
+        worst = 0.0
+        for a, (status, b) in zip(sequential, concurrent):
+            ids_a = [r["image_path"] + r["text"] for r in a["results"]]
+            ids_b = [r["image_path"] + r["text"] for r in b["results"]]
+            if status != 200 or ids_a != ids_b:
+                raise AssertionError(f"concurrent search: {status} {ids_b} != {ids_a}")
+            worst = max(worst, max(abs(x["score"] - y["score"]) for x, y in zip(a["results"], b["results"])))
+        if not (passes < 8 and worst <= 5e-3):
+            raise AssertionError(f"8 concurrent HTTP searches: {passes} text tower passes, score diff {worst}")
+        log(f"phase 6 (c) 8 concurrent HTTP searches: {passes} text tower pass(es), the sequential "
+            f"results, max score diff {worst:.3e}")
+
+        text_body = _multipart({"description": texts[0]})
+        image_body = _multipart(files=upload)
+        both_body = _multipart({"description": texts[0]}, upload)
+        wire = _latency(torch, (
+            ("text", lambda: _http(f"{base}/api/search", *text_body)),
+            ("image", lambda: _http(f"{base}/api/search", *image_body)),
+            ("both", lambda: _http(f"{base}/api/search", *both_body)),
+        ))
+        seeker = graph.seeker
+        local = _latency(torch, (
+            ("text", lambda: seeker.search_items(description=texts[0])),
+            ("image", lambda: seeker.search_items(image_path=paths[2])),
+            ("both", lambda: seeker.search_items(description=texts[0], image_path=paths[2])),
+        ))
+        log(f"phase 6 (c) request latency, median of 10 (ms): over the wire {json.dumps(wire)}; the "
+            f"server's seeker in-process {json.dumps(local)}; phase 3's in-process {json.dumps(lat3)} [{card}]")
+    finally:
+        server.shutdown()
+        server.server_close()
+        graph.seeker.encoder.close()
+        thread.join(timeout=30)
+    return counts
+
+
+def crop_http_path(torch, card, enc, index, texts, paths, lat3):
+    """Phase 6: (a) the detector, (b) the crop stage, (c) the HTTP API.
+    Returns the launches of (b)'s device-crop seeker run and (c)'s HTTP text
+    searches."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p6_")
+    try:
+        renders = _renders(tmp)
+        det = detector_phase(torch, card, paths, renders)
+        crop = crop_phase(torch, card, enc, index, paths, renders, det, tmp)
+        http = http_phase(torch, card, enc, index, texts, paths, lat3, os.path.join(tmp, "http"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    return crop, http
+
+
 def main() -> int:
     try:
         import torch
@@ -1292,7 +1726,10 @@ def main() -> int:
         log(card)
         return 0
 
-    counts, (enc, texts, images, paths) = main_path(torch, card)
+    counts, (enc, texts, images, paths), (index, lat3) = main_path(torch, card)
+    if "--stop-after" in sys.argv and sys.argv[sys.argv.index("--stop-after") + 1] == "3":
+        log(card)
+        return 0
     hbm = hbm_path(torch, card, enc, texts, images, paths)
     for name, tags in (("tilemax_sup", "a"), ("tilemax", "b"), ("tilemax_sup_q8", "cd")):
         counts[name] = sum(hbm[tag][name] for tag in tags)
@@ -1300,6 +1737,8 @@ def main() -> int:
     l14 = l14_path(torch, card, texts, images, paths)
     for name in OFF_BY_DEFAULT:
         counts[name] = l14[name]
+    torch.cuda.empty_cache()
+    crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
 
     table = []
     for name, (rows, worst) in results.items():
@@ -1312,6 +1751,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
             "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
+            # phase 6's counted runs: the device-crop seeker and the HTTP text searches
+            "launches_phase6": crop[name] + http[name],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))

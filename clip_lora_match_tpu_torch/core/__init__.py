@@ -4,8 +4,10 @@ from clip_lora_match_tpu_torch.core.config import (
     DBConfig,
     LoraConfig,
     PreprocessConfig,
+    YoloConfig,
     load_clip_config,
     load_db_config,
+    load_yolo_config,
 )
 from clip_lora_match_tpu_torch.core.device import resolve_device
 
@@ -15,7 +17,9 @@ __all__ = [
     "DBConfig",
     "LoraConfig",
     "PreprocessConfig",
+    "YoloConfig",
     "load_clip_config",
     "load_db_config",
+    "load_yolo_config",
     "resolve_device",
 ]

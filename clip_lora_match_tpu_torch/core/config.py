@@ -3,7 +3,8 @@
 The port's own copy of the parts of ``clip_lora_match_tpu/core/config.py`` the
 serving path needs: ``ClipArchConfig`` (with the same presets), ``ClipConfig``,
 ``PreprocessConfig``, ``LoraConfig`` and ``load_clip_config``, parsing the same
-``config/clip_config.yaml``, and ``DBConfig`` with ``load_db_config`` for
+``config/clip_config.yaml``; ``YoloConfig`` with ``load_yolo_config`` for
+``config/yolo_config.yaml``; and ``DBConfig`` with ``load_db_config`` for
 ``config/db_config.yaml``. Unknown keys are ignored.
 """
 
@@ -189,6 +190,54 @@ def _arch_from_yaml(model: dict) -> Optional[ClipArchConfig]:
     if unknown:
         warnings.warn(f"ignoring unknown model.arch keys: {unknown}")
     return dataclasses.replace(base, **{k: v for k, v in block.items() if k in known})
+
+
+@dataclass(frozen=True)
+class YoloConfig:
+    """Mirrors config/yolo_config.yaml. ``device`` is read and kept so that one
+    YAML serves both packages; the port's detector runs on the device its
+    caller names (``"cuda"`` by default), whatever this field says."""
+
+    name: str = "yolov8s"
+    weights_path: str = "models/yolo/yolov8s.pt"
+    device: str = "tpu"
+    imgsz: int = 640
+    conf_threshold: float = 0.25
+    iou_threshold: float = 0.45
+    max_det: int = 5
+    classes: Optional[Sequence[int]] = None
+    agnostic_nms: bool = False
+    # minimum box area as a fraction of the image; 0 crops every detection,
+    # as the reference does. The committed synthetic-corpus detector can fire
+    # confident near-zero-area boxes on real photos; ~0.01 drops those.
+    min_box_frac: float = 0.0
+    crop_enabled: bool = False
+    crop_save_dir: str = "data/cropped"
+    filename_pattern: str = "{stem}_crop_{idx}.jpg"
+
+
+def load_yolo_config(path: Optional[str] = None) -> YoloConfig:
+    """Parse the config/yolo_config.yaml shape; a missing path gives defaults."""
+    if path is None or not os.path.exists(path):
+        return YoloConfig()
+    raw = _read_yaml(path)
+    model = raw.get("model", {}) or {}
+    inf = raw.get("inference", {}) or {}
+    crop = raw.get("crop", {}) or {}
+    return YoloConfig(
+        name=model.get("name", "yolov8s"),
+        weights_path=model.get("weights_path", "models/yolo/yolov8s.pt"),
+        device=model.get("device", "tpu"),
+        imgsz=model.get("imgsz", 640),
+        conf_threshold=inf.get("conf_threshold", 0.25),
+        iou_threshold=inf.get("iou_threshold", 0.45),
+        max_det=inf.get("max_det", 5),
+        classes=inf.get("classes"),
+        agnostic_nms=inf.get("agnostic_nms", False),
+        crop_enabled=crop.get("enabled", False),
+        crop_save_dir=crop.get("save_dir", "data/cropped"),
+        filename_pattern=crop.get("filename_pattern", "{stem}_crop_{idx}.jpg"),
+    )
 
 
 @dataclass(frozen=True)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import warnings
 from typing import Optional, Sequence
 
@@ -112,6 +113,7 @@ class ClipEncoder:
         self.preprocessor = ClipPreprocessor(config=self.cfg)
         self.eot_id = self.preprocessor.tokenizer.eot_id
         self._serving = None
+        self._serving_lock = threading.Lock()
 
     # -- construction -----------------------------------------------------------
 
@@ -178,28 +180,35 @@ class ClipEncoder:
         )
 
     def _serving_state(self):
-        if self._serving is None:
-            params = _serving_tree(self.params, self.compute_dtype)
-            lora = None if self.lora is None else _serving_tree(self.lora, self.compute_dtype)
-            if lora is not None:
-                _group_attention(params, lora, self.compute_dtype)
-            self._serving = (params, lora)
-        return self._serving
+        # request threads (the device crop) and the batch queue's worker may
+        # both reach the first encode: one of them builds the copy
+        with self._serving_lock:
+            if self._serving is None:
+                params = _serving_tree(self.params, self.compute_dtype)
+                lora = None if self.lora is None else _serving_tree(self.lora, self.compute_dtype)
+                if lora is not None:
+                    _group_attention(params, lora, self.compute_dtype)
+                self._serving = (params, lora)
+            return self._serving
 
     # -- batched encode (bucketed shapes) ----------------------------------------
 
     @torch.inference_mode()
-    def encode_image_batch(self, pixel_values: np.ndarray, normalize: bool = True) -> np.ndarray:
-        """(N, H, W, 3) float32 → (N, projection_dim) float32 embeddings."""
+    def encode_image_batch(
+        self, pixel_values: np.ndarray | torch.Tensor, normalize: bool = True
+    ) -> np.ndarray:
+        """(N, H, W, 3) float32 array, or a tensor (the device crop's, which
+        stays on the device) → (N, projection_dim) float32 embeddings."""
         n = pixel_values.shape[0]
         if n == 0:
             return np.zeros((0, self.arch.projection_dim), np.float32)
+        if isinstance(pixel_values, np.ndarray):
+            pixel_values = torch.from_numpy(np.ascontiguousarray(pixel_values, np.float32))
+        pix = pixel_values.to(self.device, torch.float32)
         b = _bucket(n)
-        if b != n:
-            pad = np.zeros((b - n,) + pixel_values.shape[1:], pixel_values.dtype)
-            pixel_values = np.concatenate([pixel_values, pad])
+        if b != n:  # padded on the device
+            pix = torch.cat([pix, pix.new_zeros((b - n,) + tuple(pix.shape[1:]))])
         params, lora = self._serving_state()
-        pix = torch.from_numpy(np.ascontiguousarray(pixel_values, np.float32)).to(self.device)
         with self._dispatch():
             feats = clip_model.encode_image_features(
                 params, pix, self.arch, lora=lora, lora_scaling=self.lora_scaling,

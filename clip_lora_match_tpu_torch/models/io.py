@@ -29,6 +29,11 @@ def params_from_numpy(
     their type."""
     from clip_lora_match_tpu_torch.core.device import resolve_device
 
+    return to_device(unflatten(flat), resolve_device(device), dtype)
+
+
+def unflatten(flat: dict) -> Params:
+    """Flat ``{"a/b/c": leaf}`` → nested dicts, the leaves as they are."""
     tree: Params = {}
     for key, value in flat.items():
         parts = key.split(_SEP)
@@ -36,18 +41,20 @@ def params_from_numpy(
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = value
-    return to_device(tree, resolve_device(device), dtype)
+    return tree
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+    """Apply ``fn`` to every tensor leaf of nested dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def to_device(tree, device, dtype: torch.dtype | None = None):
-    """Nested dict of numpy arrays or tensors → tensors on ``device``
+    """Nested dicts and lists of numpy arrays or tensors → tensors on ``device``
     (floating leaves cast to ``dtype`` when given)."""
 
     def conv(x):

@@ -5,7 +5,9 @@ embedding of ``"{description}, ditemukan di {location}"`` (not the image's:
 the reference's behaviour, kept); inserts the DB row first, then appends the
 row to the device index and persists it, all under one write lock, so a
 failure between the two leaves a DB row that a rebuild from the DB repairs.
-The YOLO crop stage is not ported yet: ``use_yolo_crop`` raises.
+With ``use_yolo_crop`` and a cropper, the stored photo is cropped too
+(``crop_used``; a crop error keeps the original), as the reference does; the
+index row stays the text's embedding.
 """
 
 from __future__ import annotations
@@ -50,13 +52,13 @@ class FinderService:
         encoder: ClipEncoder,
         config: Optional[FinderConfig] = None,
         store: Optional[BaseStore] = None,
+        cropper=None,
         index: Optional[EmbeddingIndex] = None,
     ):
         self.cfg = config or FinderConfig()
-        if self.cfg.use_yolo_crop:
-            raise NotImplementedError("the YOLO crop stage is not ported to PyTorch yet")
         self.encoder = encoder
         self.store = store
+        self.cropper = cropper if self.cfg.use_yolo_crop else None
         self.index = (
             index if index is not None
             else EmbeddingIndex.load(self.cfg.index_path, dim=self.cfg.k_dim, device=encoder.device)
@@ -75,6 +77,12 @@ class FinderService:
         dest = os.path.join(self.cfg.reported_images_dir, os.path.basename(image_path))
         if os.path.abspath(image_path) != os.path.abspath(dest):
             shutil.copy2(image_path, dest)
+        crop_used = False
+        if self.cropper is not None:
+            try:
+                crop_used = bool(self.cropper.crop_image(dest))
+            except Exception as e:
+                log.warning("YOLO crop failed (%s); using original image", e)
         indexed_text = (
             self.cfg.location_template.format(description=description, location=location)
             if location
@@ -105,4 +113,5 @@ class FinderService:
             index_row=row,
             stored_image_path=dest,
             indexed_text=indexed_text,
+            crop_used=crop_used,
         )

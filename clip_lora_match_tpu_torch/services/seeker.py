@@ -5,8 +5,14 @@ Text-only, image-only or both; fusion ``w_text·t + w_img·i`` renormalized
 stays on its device between searches; an index the service loaded itself is
 reloaded when its file's mtime moves (``watch_index_file``). The search
 front-end lives as long as the index, so the int8 copy that
-``index_quantize="int8"`` serves from is built once and follows appends. The
-YOLO crop stage is not ported yet: ``use_yolo_crop`` raises.
+``index_quantize="int8"`` serves from is built once and follows appends.
+
+With ``use_yolo_crop`` and a cropper, an image query is cropped first, as the
+reference does: on disk (``cropper.crop_image`` → crop 0; a crop error gives
+the original image), or with ``use_device_crop`` on the device
+(``crop_embed_pipeline``: detect → crop → embed, no crop file). The device
+path falls back to the disk path when the cropper has no live detector or the
+device crop fails; ``device_crops`` counts the queries it served.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ class SeekerConfig:
     text_weight: float = 0.5
     image_weight: float = 0.5
     use_yolo_crop: bool = False
+    # detector box → device crop → encoder, no crop file; the disk path stays
+    # the behaviour-parity default and the fallback
     use_device_crop: bool = False
     watch_index_file: bool = True
     # "int8": serve from the quantized index (SearchIndex quantize="int8")
@@ -44,12 +52,13 @@ class SeekerService:
         self,
         encoder: ClipEncoder,
         config: Optional[SeekerConfig] = None,
+        cropper=None,
         index: Optional[EmbeddingIndex] = None,
     ):
         self.cfg = config or SeekerConfig()
-        if self.cfg.use_yolo_crop or self.cfg.use_device_crop:
-            raise NotImplementedError("the YOLO crop stage is not ported to PyTorch yet")
         self.encoder = encoder
+        self.cropper = cropper if self.cfg.use_yolo_crop else None
+        self.device_crops = 0  # image queries the device crop path served
         self._shared_index = index is not None
         self.index = (
             index if index is not None
@@ -77,6 +86,42 @@ class SeekerService:
             self._search = SearchIndex(self.index, self.encoder, quantize=self.cfg.index_quantize)
             log.info("reloaded index (%d rows)", len(self.index))
 
+    def _device_crop_embed(self, image: str | Image.Image) -> Optional[np.ndarray]:
+        """Detect → device crop → embed. None sends the caller to the disk
+        path: no live detector, or the device crop failed."""
+        from clip_lora_match_tpu_torch.models.yolo.cropper import NullDetector
+        from clip_lora_match_tpu_torch.models.yolo.device_crop import crop_embed_pipeline
+
+        detector = getattr(self.cropper, "detector", None)
+        if detector is None or isinstance(detector, NullDetector):
+            return None
+        try:
+            img = (Image.open(image) if isinstance(image, str) else image).convert("RGB")
+            emb, _ = crop_embed_pipeline(
+                detector, self.encoder, img, k_best=1,
+                conf=self.cropper.cfg.conf_threshold, iou=self.cropper.cfg.iou_threshold,
+            )
+        except Exception as e:  # the reference's fall-back-to-original semantics
+            log.warning("device crop failed (%s); disk-path fallback", e)
+            return None
+        self.device_crops += 1
+        return np.asarray(emb[0])
+
+    def _image_embedding(self, image: str | Image.Image) -> np.ndarray:
+        if self.cropper is not None and self.cfg.use_device_crop:
+            emb = self._device_crop_embed(image)
+            if emb is not None:
+                return emb
+        # the disk crop reads and writes files, so it takes a path
+        if self.cropper is not None and isinstance(image, str):
+            try:
+                crops = self.cropper.crop_image(image)
+                if crops:
+                    image = crops[0]
+            except Exception as e:
+                log.warning("query crop failed (%s); using original", e)
+        return self.encoder.encode_image(image)
+
     def _build_query_embedding(
         self, description: Optional[str], image: Optional[str | Image.Image]
     ) -> np.ndarray:
@@ -85,7 +130,7 @@ class SeekerService:
         if not description and image is None:
             raise ValueError("provide a description, an image, or both")
         text_emb = self.encoder.encode_text(description) if description else None
-        image_emb = self.encoder.encode_image(image) if image is not None else None
+        image_emb = self._image_embedding(image) if image is not None else None
         if text_emb is None:
             return image_emb
         if image_emb is None:

@@ -27,7 +27,10 @@ tiles on the CUDA-core body, N no multiple of a tile, a round or a group,
 pad rows scoring 0, group maxima equal to the maxima of the kernel's own tile
 maxima, the two-pass route against the plain route at Q = 64), and the
 wrappers' refusals. Each kernel test asserts that the wrapper's launch
-counter moved.
+counter moved. The YOLO crop stage (no kernel of its own: cuDNN convs) is
+held against its CPU run: the committed detector in fp32 and bf16,
+``nms_fixed``, the device crop, and the fused search through
+``topk_retrieve``.
 """
 
 import pytest
@@ -965,3 +968,94 @@ def test_tower_layers_launch_flash_and_the_fused_mlp_when_forced(gen):
     torch.cuda.synchronize()
     torch.testing.assert_close(got_a, plain_a, atol=1e-4, rtol=1e-4)
     assert (got_m - plain_m).abs().max().item() <= 3e-2 * plain_m.abs().max().item()
+
+
+# -- the YOLO crop stage on the card against its CPU run -------------------------
+
+_SYNTH = "models/yolo_synth/yolov8n_synth.npz"
+
+
+def _renders(n):
+    import os
+    import random
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
+    import generate_fashion_corpus as gen
+
+    rng = random.Random(999)
+    return [gen.render_detect_image(rng, 320, max_objects=1)[0] for _ in range(n)]
+
+
+def test_detector_on_cuda_matches_the_cpu(gen):
+    from clip_lora_match_tpu_torch.models.yolo import yolov8 as Y
+    from clip_lora_match_tpu_torch.models.yolo.postprocess import box_iou
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = Y.load_detector(_SYNTH, device="cpu")
+    fp32 = Y.load_detector(_SYNTH, device="cuda", compute_dtype=torch.float32)
+    bf16 = Y.load_detector(_SYNTH, device="cuda")
+    assert bf16.compute_dtype == torch.bfloat16
+    assert all(t.device.type == "cuda" for t in bf16._params_c["backbone"]["0"].values())
+    for img in _renders(4):
+        want = cpu.detect(img, 0.25, 0.45, 5)
+        got = fp32.detect(img, 0.25, 0.45, 5)
+        assert [d.class_id for d in got] == [d.class_id for d in want]
+        for a, b in zip(got, want):
+            assert max(abs(x - y) for x, y in zip(a.box, b.box)) <= 0.5
+        low = bf16.detect(img, 0.25, 0.45, 5)
+        if want and low:
+            iou = box_iou(torch.tensor([want[0].box]), torch.tensor([low[0].box]))[0, 0]
+            assert iou >= 0.9 and low[0].class_id == want[0].class_id
+
+
+@pytest.mark.parametrize("agnostic", [False, True])
+def test_nms_fixed_on_cuda_equals_the_cpu(gen, agnostic):
+    from clip_lora_match_tpu_torch.models.yolo.postprocess import nms_fixed
+
+    g = torch.Generator().manual_seed(1)
+    xy = torch.rand(3, 500, 2, generator=g) * 300
+    boxes = torch.cat([xy, xy + 10 + torch.rand(3, 500, 2, generator=g) * 60], -1)
+    scores = torch.rand(3, 500, generator=g)
+    scores[1, 10:20] = scores[1].max()  # ties: the first index wins on both devices
+    classes = torch.randint(0, 10, (3, 500), dtype=torch.int32, generator=g)
+    want = nms_fixed(boxes, scores, classes, 0.25, 0.45, max_det=8, agnostic=agnostic)
+    got = nms_fixed(boxes.cuda(), scores.cuda(), classes.cuda(), 0.25, 0.45, max_det=8, agnostic=agnostic)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+
+
+def test_crop_resize_on_cuda_matches_the_cpu(gen):
+    from clip_lora_match_tpu_torch.models.yolo.device_crop import crop_resize_normalize
+
+    imgs = torch.rand(3, 480, 640, 3, generator=torch.Generator().manual_seed(2))
+    boxes = torch.tensor([[10.3, 5.7, 620.9, 470.2], [300.5, 200.25, 320.75, 215.5], [0, 0, 640, 480]])
+    want = crop_resize_normalize(imgs, boxes, 224)
+    got = crop_resize_normalize(imgs.cuda(), boxes.cuda(), 224)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_fused_search_on_cuda_launches_topk(gen):
+    import numpy as np
+
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig
+    from clip_lora_match_tpu_torch.models.clip import init_params
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.models.yolo import yolov8 as Y
+    from clip_lora_match_tpu_torch.models.yolo.device_crop import crop_embed_pipeline, make_fused_search
+
+    arch = ClipArchConfig(image_size=64, patch_size=32, vision_width=128, vision_layers=2, vision_heads=2,
+                          vision_mlp_dim=256, text_width=128, text_layers=2, text_heads=2, text_mlp_dim=256,
+                          projection_dim=64)
+    enc = ClipEncoder(init_params(0, arch, device="cuda"), arch=arch, config=ClipConfig(arch=arch),
+                      compute_dtype="float32", device="cuda")
+    det = Y.load_detector(_SYNTH, device="cuda", compute_dtype=torch.float32)
+    index = torch.nn.functional.normalize(_rand(gen, 3000, 64), dim=1)
+    search = make_fused_search(det, enc, index, k=5)
+    img = _renders(1)[0]
+    before = R.topk_retrieve.launches
+    scores, ids, box, detected = search(np.asarray(img, np.uint8))
+    assert detected and R.topk_retrieve.launches == before + 1
+    emb, dets = crop_embed_pipeline(det, enc, img)
+    staged = index.cpu().numpy() @ emb[0]
+    assert int(ids[0]) == int(np.argmax(staged)) and abs(float(scores[0]) - float(staged.max())) <= 1e-3

@@ -202,9 +202,25 @@ def test_finder_report_item_matches_jax(tmp_path, encoders):
 
 
 def test_finder_refuses_the_crop_stage(tmp_path, encoders):
-    cfg = FinderConfig(reported_images_dir=str(tmp_path / "r"), use_yolo_crop=True)
-    with pytest.raises(NotImplementedError, match="YOLO"):
-        FinderService(encoders[1], cfg, index=TIndex(dim=DIM, device="cpu"))
+    """The crop stage is ported: ``use_yolo_crop`` without a cropper reports
+    as the JAX finder does (no crop), with one it crops the stored photo
+    (tests/test_torch_device_crop.py holds that against the JAX finder)."""
+    from clip_lora_match_tpu_torch.models.yolo.cropper import YoloCropper
+
+    cfg = FinderConfig(index_path=str(tmp_path / "index.npz"), reported_images_dir=str(tmp_path / "r"),
+                       k_dim=DIM, use_yolo_crop=True)
+    jcfg = JFinderConfig(index_path=str(tmp_path / "j.npz"), reported_images_dir=str(tmp_path / "jr"),
+                         k_dim=DIM, use_yolo_crop=True)
+    image = os.path.join(IMAGES, "dompet_coklat_kantin_teknik.jpg")
+    t = FinderService(encoders[1], cfg, index=TIndex(dim=DIM, device="cpu")).report_item(image, "dompet")
+    j = JFinder(encoders[0], jcfg, index=JIndex(dim=DIM)).report_item(image, "dompet")
+    assert t.crop_used is j.crop_used is False
+    from clip_lora_match_tpu_torch.core.config import YoloConfig
+
+    cropper = YoloCropper(config=YoloConfig(crop_save_dir=str(tmp_path / "c")))  # NullDetector: full image
+    finder = FinderService(encoders[1], cfg, cropper=cropper, index=TIndex(dim=DIM, device="cpu"))
+    assert finder.report_item(image, "dompet").crop_used is True
+    assert os.listdir(tmp_path / "c") == ["dompet_coklat_kantin_teknik_crop_0.jpg"]
 
 
 def test_db_store_matches_jax(tmp_path, monkeypatch):
@@ -291,5 +307,8 @@ def test_seeker_reloads_its_own_index_file(tmp_path, encoders):
     os.utime(path, (frozen._mtime + 5, frozen._mtime + 5))
     frozen.search_items(description="topi")
     assert len(frozen.index) == 31
-    with pytest.raises(NotImplementedError):
-        SeekerService(tenc, SeekerConfig(index_path=path, use_device_crop=True))
+    # the crop stage is ported: use_device_crop alone (no use_yolo_crop, no
+    # cropper) builds and serves as the JAX seeker does, uncropped
+    crop_cfg = SeekerService(tenc, SeekerConfig(index_path=path, use_device_crop=True))
+    assert crop_cfg.cropper is None and len(crop_cfg.index) == 32
+    assert crop_cfg.search_items(description="topi biru")[0].index == 31
