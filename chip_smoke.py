@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only topk_retrieve   # build and check one kernel (phase 2 only)
     python3 chip_smoke.py --only tilemax         # the three pass-1 kernels and the bodies' crossover
     python3 chip_smoke.py --stop-after 3         # phases 1-3 (an A/B of the main path's latency)
+    python3 chip_smoke.py --stop-after 6         # phases 1-6 (an A/B without the image-file phase)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -65,7 +66,23 @@ Phases (any failure raises and exits non-zero):
    index saved to a temp .npz) over real sockets: health, report then
    search, image and text+image searches, items, 400s, launch counts per
    text search, 8 concurrent searches in fewer tower passes, and wire
-   against in-process latency.
+   against in-process latency;
+7. the image-file encode path (ClipEncoder.encode_image_files: the native
+   JPEG loader, the uint8 feed normalized on the card, decode overlapped
+   through prefetch, readback through pinned buffers) over 480 fashion
+   renders written as JPEG and 192 photo-size (1200x1600) copies, after a
+   check of which loader runs (native where g++ finds jpeglib.h, and then
+   its build must succeed; PIL rows otherwise): (b), inside phase 5, one
+   32-image batch at L/14-336 with flash and the fused MLP forced; (a), after
+   phase 6, phase 3's B/32 encoder. Each part holds encode_image_files
+   against encode_image over the same files (cosine > 0.999 in bf16, >
+   0.9999 with fp32 compute), the DCT-scaled decode against the full one on
+   the photos (>= 0.999), and one batch's launch counts, and prints the host
+   decode ms of one batch and one batch's device busy, Memcpy HtoD and idle
+   share beside the float feed's (torch.profiler); (a) adds images/s over
+   the renders and the photos with the DCT-scaled decode on and off, and
+   over the renders by host staging (pinned, pageable), and one batch's
+   upload alone between CUDA events.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -1052,8 +1069,9 @@ def _cosines(got, ref):
     return (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
 
 
-def l14_path(torch, card, texts, images, paths):
-    """Phase 5. Returns the launches of its counted run."""
+def l14_path(torch, card, texts, images, paths, files=None):
+    """Phase 5, and phase 7 (b) over ``files`` (loader, renders, photos)
+    when given. Returns the launches of phase 5's counted run."""
     from concurrent.futures import ThreadPoolExecutor
 
     from clip_lora_match_tpu_torch import ops
@@ -1205,6 +1223,8 @@ def l14_path(torch, card, texts, images, paths):
                 raise AssertionError(f"32-image batch: min cosine {cos.min()} < 0.99")
             log(f"phase 5 32-image batch kernel path (bf16, flash + fused MLP) vs plain path (fp32): "
                 f"min cosine {cos.min():.6f}")
+            if files is not None:
+                l14_files(torch, card, enc, params, lora, lcfg, cfg, files)
 
             # -- the image tower with flash and the fused MLP on and off ----------
             table = []
@@ -1237,6 +1257,24 @@ def l14_path(torch, card, texts, images, paths):
             graph.seeker.encoder.close()
         shutil.rmtree(tmp, ignore_errors=True)
     return counts
+
+
+def l14_files(torch, card, enc, params, lora, lcfg, cfg, files):
+    """Phase 7 (b): one 32-image batch of files through phase 5's L/14-336
+    encoder (flash and the fused MLP forced), beside its float feed."""
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+
+    t0 = time.perf_counter()
+    loader, renders, photos = files
+    vl = enc.arch.vision_layers
+    enc32 = ClipEncoder(params, arch=enc.arch, config=cfg, compute_dtype="float32", device=enc.device)
+    enc32.attach_lora(lora, lcfg.scaling)
+    check_file_encodes(torch, "phase 7 (b) L/14-336", loader, enc, enc32, renders, photos, 32,
+                       {"flash_attention": vl, "mlp_fused": vl, "lora_matmul": LORA_PER_LAYER * vl}, card)
+    del enc32
+    torch.cuda.empty_cache()
+    _feeds(torch, "phase 7 (b)", enc, renders[:32], 32, card)
+    log(f"phase 7 (b): {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1656,6 +1694,184 @@ def crop_http_path(torch, card, enc, index, texts, paths, lat3):
     return crop, http
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the image-file encode path (native JPEG loader, uint8 feed)
+# ---------------------------------------------------------------------------
+
+N_RENDERS_FILES = 480  # five batches of 96
+N_PHOTOS = 192  # 1200x1600 photo-size files made from the first renders
+
+
+def file_corpus(tmp: str) -> tuple[list, list]:
+    """(render paths, photo paths): the fashion renders as JPEG (quality 92)
+    and photo-size copies of the first ones (1200x1600, bilinear, quality
+    90), as bench.py's image-file benchmark makes them."""
+    from PIL import Image
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import generate_fashion_corpus as gen
+
+    combos = [(c, a, g, p) for c in list(gen.COLOURS)[:8] for a in list(gen.ARTICLES)[:8]
+              for g in gen.GENDERS for p in gen.PATTERNS[:3]][:N_RENDERS_FILES]
+    renders, photos = [], []
+    for i, (c, a, g, p) in enumerate(combos):
+        path = os.path.join(tmp, f"render_{i:04d}.jpg")
+        gen.render(c, a, g, p, "grey" if c != "grey" else "red").save(path, quality=92)
+        renders.append(path)
+    for i, src in enumerate(renders[:N_PHOTOS]):
+        path = os.path.join(tmp, f"photo_{i:04d}.jpg")
+        Image.open(src).resize((1200, 1600), Image.BILINEAR).save(path, quality=90)
+        photos.append(path)
+    return renders, photos
+
+
+def native_loader_check() -> str:
+    """Which loader the image-file path runs. Where g++ finds jpeglib.h the
+    native library must build (a failure raises); elsewhere the PIL rows
+    serve, as the JAX package would."""
+    from clip_lora_match_tpu_torch.core import native
+    from clip_lora_match_tpu_torch.data.native_loader import native_available
+
+    probe = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                           input="#include <cstdio>\n#include <jpeglib.h>\n",
+                           capture_output=True, text=True, timeout=60)
+    if probe.returncode != 0:
+        log("phase 7 loader: PIL (g++ finds no jpeglib.h: every row through PIL, as the JAX package)")
+        return "PIL"
+    t = time.perf_counter()
+    lib = native.build("clm_native")
+    if not native_available():
+        raise AssertionError("phase 7: the native loader built but does not load")
+    log(f"phase 7 loader: native ({lib.name}, libjpeg; build or cache {time.perf_counter() - t:.2f} s)")
+    return "native"
+
+
+def _feed_profile(torch, name: str, fn, upload, card: str) -> dict:
+    """Device busy, Memcpy HtoD and idle share of one call (torch.profiler,
+    beside the median unprofiled wall of 3 calls), and the call's upload
+    alone timed between CUDA events (the profiler does not always list the
+    copy)."""
+    rows = device_rows(torch, fn)
+    wall = _host_ms(fn, reps=3)
+    busy = sum(r[0] for r in rows)
+    htod = sum(r[0] for r in rows if "HtoD" in r[2])
+    up = cuda_ms(torch, upload, reps=10, warmup=2)
+    log(f"{name}: device busy {busy:.4f} ms, Memcpy HtoD {htod:.4f} ms (profiler), upload "
+        f"{up:.4f} ms (CUDA events), wall {wall:.4f} ms, idle share {1 - busy / wall:.3f} [{card}]")
+    for ms, count, key in sorted(rows, reverse=True)[:6]:
+        log(f"  {ms:9.4f} ms  x{count:<4d} {key[:90]}")
+    return dict(busy_ms=busy, htod_ms=htod, upload_ms=up, wall_ms=wall)
+
+
+def _feeds(torch, tag: str, enc, files, batch: int, card: str) -> None:
+    """One batch of ``files`` through the u8 feed (encode_image_files, its
+    decode inside) and through the float feed (encode_image_batch of the
+    same pixels), each with its upload as the path makes it: uint8 from
+    pinned memory, fp32 from pageable memory."""
+    from clip_lora_match_tpu_torch.data.native_loader import preprocess_image_batch_native_u8
+
+    pix = enc.preprocessor.preprocess_images(files)
+    u8 = torch.from_numpy(preprocess_image_batch_native_u8(files, enc.cfg.preprocess)).pin_memory()
+    _feed_profile(torch, f"{tag} one {batch}-image batch, encode_image_files (u8 feed, {u8.nbytes / 1e6:.1f} MB, "
+                  "decode inside)", lambda: enc.encode_image_files(files, batch_size=batch, dct_scale=False),
+                  lambda: u8.to("cuda", non_blocking=True), card)
+    _feed_profile(torch, f"{tag} one {batch}-image batch, encode_image_batch (float feed, {pix.nbytes / 1e6:.1f} MB)",
+                  lambda: enc.encode_image_batch(pix), lambda: torch.from_numpy(pix).to("cuda"), card)
+
+
+def _files_rate(torch, enc, paths, reps: int = 2, **kw) -> list:
+    """images/s of encode_image_files over ``paths`` (decode included), per rep."""
+    rates = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enc.encode_image_files(paths, **kw)
+        torch.cuda.synchronize()
+        rates.append(len(paths) / (time.perf_counter() - t))
+    return rates
+
+
+def check_file_encodes(torch, tag: str, loader: str, enc, enc32, renders, photos, batch: int,
+                       want: dict, card: str):
+    """The asserts of one part of phase 7: the u8 path against the float
+    feed (bf16 and fp32 compute), DCT-scaled against full decode, the launch
+    counts of one batch, and the host decode ms of one batch."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.data.native_loader import preprocess_image_batch_native_u8
+
+    log(f"{tag}: loader {loader}")
+    files = renders[:batch]
+    for name, e, floor in (("bf16", enc, 0.999), ("fp32", enc32, 0.9999)):
+        got = e.encode_image_files(files, batch_size=batch, dct_scale=False)
+        ref = e.encode_image(files)
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{tag}: encode_image_files shape {got.shape} or non-finite values")
+        cos = _cosines(got, ref).min()
+        if not cos > floor:
+            raise AssertionError(f"{tag} {name}: encode_image_files vs encode_image min cosine {cos} <= {floor}")
+        log(f"{tag} {name} compute: encode_image_files (u8 feed) vs encode_image (float feed) over "
+            f"{batch} files: min cosine {cos:.6f} (> {floor}) [{card}]")
+    full = enc.encode_image_files(photos[:batch], batch_size=batch, dct_scale=False)
+    fast = enc.encode_image_files(photos[:batch], batch_size=batch, dct_scale=True)
+    cos = _cosines(fast, full).min()
+    if not cos >= 0.999:
+        raise AssertionError(f"{tag}: dct_scale on vs off min cosine {cos} < 0.999")
+    log(f"{tag}: dct_scale=True vs False over {batch} 1200x1600 photos: min cosine {cos:.6f} [{card}]")
+    enc.encode_image_files(files, batch_size=batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    enc.encode_image_files(files, batch_size=batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches of one {batch}-image batch {counts} != {want}")
+    log(f"{tag}: launches of one {batch}-image batch: {json.dumps(counts)} [{card}]")
+    size = enc.cfg.preprocess.image_size
+    decode = {
+        "renders": _host_ms(lambda: preprocess_image_batch_native_u8(files, enc.cfg.preprocess, dct_scale=False), 3),
+        "photos_dct_off": _host_ms(lambda: preprocess_image_batch_native_u8(
+            photos[:batch], enc.cfg.preprocess, dct_scale=False), 3),
+        "photos_dct_on": _host_ms(lambda: preprocess_image_batch_native_u8(
+            photos[:batch], enc.cfg.preprocess, dct_scale=True), 3),
+    }
+    log(f"{tag}: host decode ms of one {batch}-image batch at {size}^2 (median of 3, "
+        f"{os.cpu_count()} threads): {json.dumps(decode)} [{card}]")
+
+
+def image_files_path(torch, card, enc, files):
+    """Phase 7 (a): ViT-B/32 (phase 3's encoder) over the renders and photos."""
+    from clip_lora_match_tpu_torch.models.encoder import HOST_STAGING, ClipEncoder
+
+    t0 = time.perf_counter()
+    loader, renders, photos = files
+    layers = enc.arch.vision_layers
+    enc32 = ClipEncoder(enc.params, arch=enc.arch, config=enc.cfg, compute_dtype="float32", device=enc.device)
+    enc32.attach_lora(enc.lora, enc.lora_scaling)
+    check_file_encodes(torch, "phase 7 (a) B/32", loader, enc, enc32, renders, photos, 96,
+                       {"attention_small": layers, "lora_matmul": LORA_PER_LAYER * layers}, card)
+    del enc32
+
+    enc.encode_image_files(renders[:96])  # warm
+    rates = {
+        "renders": _files_rate(torch, enc, renders, dct_scale=False),
+        "renders_1_thread": _files_rate(torch, enc, renders, dct_scale=False, num_threads=1),
+        "photos_dct_on": _files_rate(torch, enc, photos, dct_scale=True),
+        "photos_dct_off": _files_rate(torch, enc, photos, dct_scale=False),
+        "photos_dct_off_1_thread": _files_rate(torch, enc, photos, reps=1, dct_scale=False, num_threads=1),
+    }
+    log(f"phase 7 (a) encode_image_files images/s (decode included; {os.cpu_count()} decode threads "
+        f"unless 1): {json.dumps(rates)} [{card}]")
+    # host staging: each way in turns (a, b, c, c, b, a), twice
+    staging = {name: [] for name in HOST_STAGING}
+    for name in 2 * (HOST_STAGING + HOST_STAGING[::-1]):
+        enc.host_staging = name
+        staging[name] += _files_rate(torch, enc, renders, reps=1, dct_scale=False)
+    enc.host_staging = "pinned"
+    log(f"phase 7 (a) images/s over the {len(renders)} renders by host staging: {json.dumps(staging)} [{card}]")
+    _feeds(torch, "phase 7 (a)", enc, renders[:96], 96, card)
+    log(f"phase 7 (a): {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1726,19 +1942,35 @@ def main() -> int:
         log(card)
         return 0
 
+    stop_after = sys.argv[sys.argv.index("--stop-after") + 1] if "--stop-after" in sys.argv else None
     counts, (enc, texts, images, paths), (index, lat3) = main_path(torch, card)
-    if "--stop-after" in sys.argv and sys.argv[sys.argv.index("--stop-after") + 1] == "3":
+    if stop_after == "3":
         log(card)
         return 0
     hbm = hbm_path(torch, card, enc, texts, images, paths)
     for name, tags in (("tilemax_sup", "a"), ("tilemax", "b"), ("tilemax_sup_q8", "cd")):
         counts[name] = sum(hbm[tag][name] for tag in tags)
     torch.cuda.empty_cache()
-    l14 = l14_path(torch, card, texts, images, paths)
-    for name in OFF_BY_DEFAULT:
-        counts[name] = l14[name]
-    torch.cuda.empty_cache()
-    crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
+    # phase 7's files, made here: its part (b) runs inside phase 5
+    tmp7 = None if stop_after == "6" else tempfile.mkdtemp(prefix="chip_smoke_p7_")
+    try:
+        files = None
+        if tmp7 is not None:
+            loader = native_loader_check()
+            t = time.perf_counter()
+            files = (loader, *file_corpus(tmp7))
+            log(f"phase 7 files: {len(files[1])} renders (224^2, quality 92) and {len(files[2])} "
+                f"photos (1200x1600, quality 90) written in {time.perf_counter() - t:.2f} s")
+        l14 = l14_path(torch, card, texts, images, paths, files)
+        for name in OFF_BY_DEFAULT:
+            counts[name] = l14[name]
+        torch.cuda.empty_cache()
+        crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
+        if files is not None:
+            image_files_path(torch, card, enc, files)
+    finally:
+        if tmp7 is not None:
+            shutil.rmtree(tmp7, ignore_errors=True)
 
     table = []
     for name, (rows, worst) in results.items():

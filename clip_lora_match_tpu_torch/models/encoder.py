@@ -6,6 +6,12 @@ batches sliced on exit), the 77→64 text slice, the dropped text padding mask
 in serving (causal masking makes it redundant for the EOT-pooled output),
 and bf16 compute with fp32 accumulation on the accelerator (fp32 on the CPU).
 
+``encode_image_files`` is the throughput entry point over JPEG paths: the
+native loader decodes batch i+1 on a background thread while the device
+encodes batch i, the pixels cross as uint8 (scaled, CLIP-normalized and cast
+to the compute dtype on the device), and readback lags dispatch by up to 3
+batches through pinned host buffers.
+
 The master weights stay fp32. A serving copy (matmul kernels and LoRA
 factors in the compute dtype, transformer layers unstacked into per-layer
 views, each adapted attention layer's q/k/v operands grouped for one
@@ -20,6 +26,7 @@ import contextlib
 import os
 import threading
 import warnings
+from collections import deque
 from typing import Optional, Sequence
 
 import numpy as np
@@ -39,6 +46,15 @@ _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 96, 128, 256, 512, 1024)
 _TEXT_SEQ_SLICE = 64
 
 _DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# encode_image_files: batches decoded ahead, and batches whose readback may
+# lag their dispatch
+_PREFETCH_DEPTH = 2
+_READBACK_LAG = 3
+# how encode_image_files moves its batches on CUDA: "pinned" copies each
+# decoded batch into a pinned buffer (an asynchronous upload) and reads back
+# through pinned buffers; "pageable" copies synchronously both ways
+HOST_STAGING = ("pinned", "pageable")
 
 
 def _bucket(n: int) -> int:
@@ -112,6 +128,10 @@ class ClipEncoder:
         self.lora_scaling = lora_scaling
         self.preprocessor = ClipPreprocessor(config=self.cfg)
         self.eot_id = self.preprocessor.tokenizer.eot_id
+        pre = self.cfg.preprocess
+        self._pix_mean = torch.tensor(pre.mean, dtype=torch.float32, device=self.device)
+        self._pix_std = torch.tensor(pre.std, dtype=torch.float32, device=self.device)
+        self.host_staging = "pinned"  # one of HOST_STAGING; phase 7 of chip_smoke.py times both
         self._serving = None
         self._serving_lock = threading.Lock()
 
@@ -257,6 +277,96 @@ class ClipEncoder:
             feats = clip_model.l2_normalize(feats)
         return feats[:n].float().cpu().numpy()
 
+    def _encode_u8(self, u8: torch.Tensor, normalize: bool) -> torch.Tensor:
+        """(B, S, S, 3) uint8 on the device → (bucket(B), D) float32 features:
+        scaled and CLIP-normalized in fp32 on the device, cast to the compute
+        dtype before the tower (so the residual stream is in that dtype), the
+        bucket padded with zero pixels."""
+        b = u8.shape[0]
+        bb = _bucket(b)
+        if bb != b:
+            u8 = torch.cat([u8, u8.new_zeros((bb - b,) + tuple(u8.shape[1:]))])
+        x = (u8.float() / 255.0 - self._pix_mean) / self._pix_std
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        params, lora = self._serving_state()
+        with self._dispatch():
+            feats = clip_model.encode_image_features(
+                params, x, self.arch, lora=lora, lora_scaling=self.lora_scaling,
+                compute_dtype=self.compute_dtype,
+            )
+        if normalize:
+            feats = clip_model.l2_normalize(feats)
+        return feats.float()
+
+    @torch.inference_mode()
+    def encode_image_files(
+        self,
+        paths: Sequence[str],
+        batch_size: int = 96,
+        normalize: bool = True,
+        num_threads: Optional[int] = None,
+        dct_scale: Optional[bool] = None,
+    ) -> np.ndarray:
+        """JPEG paths → (N, D) float32 embeddings, the host decode overlapped
+        with the device's work: the native loader (``data/native_loader.py``,
+        PIL rows for what it cannot decode) prepares batch i+1 on a
+        background thread while the device encodes batch i, and batch i's
+        embeddings are read back up to 3 batches later, one wait per batch.
+
+        ``dct_scale`` (default on here): decode large JPEGs at libjpeg's
+        smallest N/8 scale that covers the target's short side; pass False
+        for the PIL pipeline's pixels."""
+        from clip_lora_match_tpu_torch.data.dataset import prefetch
+        from clip_lora_match_tpu_torch.data.native_loader import preprocess_image_batch_native_u8
+
+        if self.host_staging not in HOST_STAGING:
+            raise ValueError(f"host_staging must be one of {HOST_STAGING}, got {self.host_staging!r}")
+        if dct_scale is None:
+            dct_scale = True
+        paths = list(paths)
+        n, D, S = len(paths), self.arch.projection_dim, self.cfg.preprocess.image_size
+        out = np.zeros((n, D), np.float32)
+        if n == 0:
+            return out
+        staging = self.host_staging if self.device.type == "cuda" else "pageable"
+        if staging == "pinned":
+            # a slot comes round again _READBACK_LAG + 1 batches later, when
+            # the drain has seen that batch's work (its upload included) end
+            stage = _PinnedRing(_READBACK_LAG + 1, (batch_size, S, S, 3), torch.uint8)
+            back = _PinnedRing(_READBACK_LAG + 1, (_bucket(batch_size), D), torch.float32)
+
+        def batches():
+            for i in range(0, n, batch_size):
+                yield preprocess_image_batch_native_u8(
+                    paths[i:i + batch_size], cfg=self.cfg.preprocess, num_threads=num_threads,
+                    dct_scale=dct_scale,
+                )
+
+        pending: deque = deque()  # (event, pinned buffer, row, rows)
+        row = 0
+        for u8 in prefetch(batches(), depth=_PREFETCH_DEPTH):
+            b = u8.shape[0]
+            if staging == "pageable":
+                feats = self._encode_u8(torch.from_numpy(u8).to(self.device), normalize)
+                out[row:row + b] = feats[:b].cpu().numpy()
+                row += b
+                continue
+            slot, buf = stage.take()
+            buf[:b].copy_(torch.from_numpy(u8))
+            x = buf[:b].to(self.device, non_blocking=True)
+            stage.done(slot)
+            feats = self._encode_u8(x, normalize)
+            slot, host = back.take()
+            host[:b].copy_(feats[:b], non_blocking=True)
+            pending.append((back.done(slot), host, row, b))
+            if len(pending) > _READBACK_LAG:
+                _drain(pending, out)
+            row += b
+        while pending:
+            _drain(pending, out)
+        return out
+
     # -- convenience API ----------------------------------------------------------
 
     def encode_image(self, img: str | Image.Image | Sequence, normalize: bool = True) -> np.ndarray:
@@ -272,6 +382,38 @@ class ClipEncoder:
         enc = self.preprocessor.preprocess_text(text)
         out = self.encode_text_batch(enc["input_ids"], enc["attention_mask"], normalize)
         return out[0] if single else out
+
+
+class _PinnedRing:
+    """Pinned host buffers of one shape, taken in turn; a buffer is handed out
+    again only after the device's copy that last used it has finished (the
+    event ``done`` recorded after that copy)."""
+
+    def __init__(self, slots: int, shape: tuple, dtype: torch.dtype):
+        self.bufs = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(slots)]
+        self.events: list = [None] * slots
+        self.next = 0
+
+    def take(self) -> tuple[int, torch.Tensor]:
+        slot = self.next
+        self.next = (slot + 1) % len(self.bufs)
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+        return slot, self.bufs[slot]
+
+    def done(self, slot: int) -> torch.cuda.Event:
+        """Mark the copy just enqueued on the current stream as the slot's last use."""
+        ev = torch.cuda.Event()
+        ev.record()
+        self.events[slot] = ev
+        return ev
+
+
+def _drain(pending: deque, out: np.ndarray) -> None:
+    """Wait for the oldest readback and copy its rows out of pinned memory."""
+    ev, host, row, b = pending.popleft()
+    ev.synchronize()
+    out[row:row + b] = host[:b].numpy()
 
 
 def _refuse_quantize(cfg: ClipConfig) -> None:

@@ -138,8 +138,9 @@ def load_yolo_cropper(
     """A cropper over the first weights found (the argument, the config's
     path, the committed checkpoints) on ``device``, else a ``NullDetector``.
     A device without CUDA raises here; weights that fail to load are logged
-    and the next candidate is tried."""
-    from clip_lora_match_tpu_torch.models.yolo.yolov8 import load_detector
+    and the next candidate is tried. Only the host's read and parse of a
+    file is guarded: the move to the device raises as it is."""
+    from clip_lora_match_tpu_torch.models.yolo.yolov8 import YoloV8Detector, params_from_jax, read_detector
 
     dev = resolve_device(device)
     cfg = load_yolo_config(config_path)
@@ -149,11 +150,13 @@ def load_yolo_cropper(
     for weights in candidates:
         if weights and os.path.exists(weights):
             try:
-                detector = load_detector(weights, cfg, device=dev)
-                log.info("YOLO detector loaded from %s", weights)
-                break
-            except (OSError, ValueError, KeyError) as e:
+                tree, wcfg = read_detector(weights, cfg)
+            except Exception as e:  # a corrupt file of any kind: try the next one
                 log.warning("YOLO weights load failed at %s (%s)", weights, e)
+                continue
+            detector = YoloV8Detector(params_from_jax(tree, dev), wcfg, device=dev)
+            log.info("YOLO detector loaded from %s", weights)
+            break
     else:
         log.info("no YOLO weights at %s; NullDetector (full-image crops)", candidates)
     return YoloCropper(detector, cfg)

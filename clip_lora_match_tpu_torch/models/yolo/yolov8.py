@@ -400,17 +400,10 @@ class YoloV8Detector:
         return out
 
 
-def load_detector(
-    weights_path: str,
-    cfg: Optional[YoloConfig] = None,
-    device: str | torch.device = "cuda",
-    compute_dtype=None,
-) -> YoloV8Detector:
-    """Load an ``.npz`` of ultralytics state-dict arrays or a native parameter
-    tree (the JAX package's file layout; fp16 storage is computed in fp32).
-    A ``meta.json`` beside the weights overrides the config's ``imgsz``, so
-    inference letterboxes to the trained resolution."""
-    dev = resolve_device(device)
+def read_detector(weights_path: str, cfg: Optional[YoloConfig] = None):
+    """The host half of ``load_detector``: read and parse the ``.npz`` (an
+    ultralytics state dict or a native tree) and apply a ``meta.json``
+    beside it → (numpy parameter tree, config)."""
     with np.load(weights_path) as data:
         flat = {k: np.asarray(data[k], np.float32) for k in data.files}
     if any(k.startswith("model.") for k in flat):
@@ -423,4 +416,19 @@ def load_detector(
             imgsz = json.load(f).get("imgsz")
         if imgsz:
             cfg = dataclasses.replace(cfg or YoloConfig(), imgsz=int(imgsz))
+    return tree, cfg
+
+
+def load_detector(
+    weights_path: str,
+    cfg: Optional[YoloConfig] = None,
+    device: str | torch.device = "cuda",
+    compute_dtype=None,
+) -> YoloV8Detector:
+    """Load an ``.npz`` of ultralytics state-dict arrays or a native parameter
+    tree (the JAX package's file layout; fp16 storage is computed in fp32).
+    A ``meta.json`` beside the weights overrides the config's ``imgsz``, so
+    inference letterboxes to the trained resolution."""
+    dev = resolve_device(device)
+    tree, cfg = read_detector(weights_path, cfg)
     return YoloV8Detector(params_from_jax(tree, dev), cfg, compute_dtype=compute_dtype, device=dev)

@@ -61,6 +61,19 @@ def _sorted_topk(sims: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor
     return s[:, :k].contiguous(), i[:, :k].to(torch.int32).contiguous()
 
 
+def _empty_if_k0(queries: torch.Tensor, k: int):
+    """The entry points' ``k`` contract (``lax.top_k``'s in the JAX package):
+    ``k < 0`` raises; ``k == 0`` gives the empty (Q, 0) result, returned here
+    (None otherwise)."""
+    if k < 0:
+        raise ValueError(f"top-k: k must be nonnegative, got {k}")
+    if k > 0:
+        return None
+    Q = queries.shape[0]
+    return (torch.empty((Q, 0), dtype=torch.float32, device=queries.device),
+            torch.empty((Q, 0), dtype=torch.int32, device=queries.device))
+
+
 def topk_retrieve_plain(queries, index, k: int = 5):
     """The kernel's contract in plain PyTorch."""
     k = min(k, index.shape[0])
@@ -214,6 +227,9 @@ def topk_retrieve_midscale(queries, index, k: int = 5):
     """Mid band: one matmul (the normalized query cast to the index dtype,
     fp32 accumulation) and an exact sorted top-k. Not a kernel: the JAX
     package runs an XLA dot here too."""
+    empty = _empty_if_k0(queries, k)
+    if empty is not None:
+        return empty
     sims = _normalize_div(queries).to(index.dtype).float() @ index.float().T
     return _sorted_topk(sims, min(k, index.shape[0]))
 
@@ -562,6 +578,9 @@ def topk_retrieve_twopass(
     for CUDA tensors, off on the CPU. ``group``: hierarchical pass-2 width; ``None``
     = 16 from ``HIER_MIN_TILES`` main-part tiles on, ``0``/``1`` = off.
     """
+    empty = _empty_if_k0(queries, k)
+    if empty is not None:
+        return empty
     N = index.shape[0]
     k = min(k, N)
     nt, extra, nv = _slack(N, tile, n_valid)
@@ -635,6 +654,9 @@ def topk_retrieve_q8(
     same maxima."""
     if mxu not in _Q8_MXU:
         raise ValueError(f"bad mxu mode {mxu!r}")
+    empty = _empty_if_k0(queries, k)
+    if empty is not None:
+        return empty
     if queries.shape[1] > 1024:
         raise ValueError(
             f"topk_retrieve_q8 requires D <= 1024 (got D={queries.shape[1]}): "
@@ -690,7 +712,11 @@ def topk_retrieve_auto(queries, index, k: int = 5):
     Below ``TWOPASS_MIN_N`` a ``k`` past the kernel's ``K_MAX`` takes the
     exact mid-band route (one matmul, a stable sort, ties to the lower id):
     the kernel's contract for an fp32 index; for a bf16 index the query is
-    cast to bf16 first, as the mid band does."""
+    cast to bf16 first, as the mid band does. ``k == 0`` gives (Q, 0) and
+    ``k < 0`` raises on every band."""
+    empty = _empty_if_k0(queries, k)
+    if empty is not None:
+        return empty
     n = index.shape[0]
     if n >= TWOPASS_MIN_N:
         return topk_retrieve_twopass(queries, index, k)

@@ -1,6 +1,7 @@
 """Host-side image preprocessing: decode → resize → center-crop → normalize.
 
-PyTorch port's copy of ``clip_lora_match_tpu/preprocess/image.py`` (PIL only).
+PyTorch port's copy of ``clip_lora_match_tpu/preprocess/image.py``: the PIL
+pipeline (and the PIL rows of ``data/native_loader.py``).
 
 From-scratch replacement for the reference's ``CLIPProcessor`` image path
 (ref:src/preprocessing/clip_preprocess.py:35-44). Semantics match the CLIP
@@ -80,6 +81,23 @@ def preprocess_image(
     )
 
 
+def load_resized_cropped_u8(
+    path_or_img: str | Image.Image,
+    cfg: PreprocessConfig | None = None,
+) -> np.ndarray:
+    """File path or PIL image → (S, S, 3) uint8 RGB, resized and center-cropped
+    but not normalized: the uint8 feed's PIL row (normalized on the device)."""
+    cfg = cfg or PreprocessConfig()
+    img = Image.open(path_or_img) if isinstance(path_or_img, str) else path_or_img
+    img = img.convert("RGB")
+    img = _resize_shortest(img, cfg.image_size)
+    if cfg.center_crop:
+        img = _center_crop(img, cfg.image_size)
+    else:
+        img = img.resize((cfg.image_size, cfg.image_size), Image.Resampling.BICUBIC)
+    return np.asarray(img, dtype=np.uint8)
+
+
 def preprocess_image_batch(
     items: Sequence[str | Image.Image],
     cfg: PreprocessConfig | None = None,
@@ -90,3 +108,11 @@ def preprocess_image_batch(
     if not items:
         return np.zeros((0, cfg.image_size, cfg.image_size, 3), dtype=np.float32)
     return np.stack([preprocess_image(x, cfg) for x in items])
+
+
+def nhwc_to_nchw(x: np.ndarray) -> np.ndarray:
+    return np.moveaxis(x, -1, -3)
+
+
+def nchw_to_nhwc(x: np.ndarray) -> np.ndarray:
+    return np.moveaxis(x, -3, -1)

@@ -1,7 +1,10 @@
-"""Unified image+text preprocessor (PIL images, pure-Python BPE).
+"""Unified image+text preprocessor (port of
+``clip_lora_match_tpu/preprocess/pipeline.py``).
 
-Port of ``clip_lora_match_tpu/preprocess/pipeline.py`` without the native JPEG
-loader: every image goes through the PIL pipeline in ``preprocess/image.py``.
+A batch made only of paths goes through the native JPEG loader
+(``data/native_loader.py``) when its library builds, with PIL rows for what
+it cannot decode; every other batch goes through the PIL pipeline in
+``preprocess/image.py``. Text goes through the BPE tokenizer, padded to 77.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import numpy as np
 from PIL import Image
 
 from clip_lora_match_tpu_torch.core.config import ClipConfig, load_clip_config
-from clip_lora_match_tpu_torch.preprocess.image import preprocess_image_batch
+from clip_lora_match_tpu_torch.preprocess.image import preprocess_image, preprocess_image_batch
 from clip_lora_match_tpu_torch.tokenizer.bpe import ClipTokenizer
 
 
@@ -31,9 +34,23 @@ class ClipPreprocessor:
             self.cfg.tokenizer_dir, max_length=self.pre.max_text_length
         )
 
+    def preprocess_image(self, img: str | Image.Image) -> np.ndarray:
+        """→ (1, H, W, 3) float32, a batch of one."""
+        return preprocess_image(img, self.pre)[None]
+
     def preprocess_images(self, imgs: Sequence[str | Image.Image]) -> np.ndarray:
-        """→ (B, H, W, 3) float32 NHWC."""
-        return preprocess_image_batch(list(imgs), self.pre)
+        """→ (B, H, W, 3) float32 NHWC; a batch of paths only through the
+        native loader when it is built."""
+        imgs = list(imgs)
+        if imgs and all(isinstance(i, str) for i in imgs):
+            from clip_lora_match_tpu_torch.data.native_loader import (
+                native_available,
+                preprocess_image_batch_native,
+            )
+
+            if native_available():
+                return preprocess_image_batch_native(imgs, self.pre)
+        return preprocess_image_batch(imgs, self.pre)
 
     def preprocess_text(self, text: str | Sequence[str]) -> dict[str, np.ndarray]:
         """→ {"input_ids": (B,77), "attention_mask": (B,77)}, padded at the end."""
@@ -43,3 +60,9 @@ class ClipPreprocessor:
             pad_to_max=True,
             truncate=self.pre.truncate,
         )
+
+    def preprocess_pair(self, img: str | Image.Image, text: str) -> dict[str, np.ndarray]:
+        """→ {"pixel_values": (1,H,W,3), "input_ids": (1,77), "attention_mask": (1,77)}."""
+        out = self.preprocess_text(text)
+        out["pixel_values"] = self.preprocess_image(img)
+        return out

@@ -71,14 +71,17 @@ class SearchIndex:
         self._q8 = (n, vq, sc)
         return vq, sc
 
-    def _topk(self, queries_2d: np.ndarray, k: int):
-        """One (Q, D) batch; the caller holds the index lock."""
+    def _topk(self, queries: np.ndarray, k: int):
+        """One (Q, D) or (D,) batch → (Q, k) scores and ids, a (D,) query as
+        one row (the JAX package's ``np.atleast_2d``); the caller holds the
+        index lock."""
         if self.quantize == "int8":
             vq, sc = self._q8_state()
-            q = torch.as_tensor(queries_2d, dtype=torch.float32, device=vq.device)
+            q = torch.as_tensor(np.atleast_2d(queries), dtype=torch.float32, device=vq.device)
             s, i = topk_retrieve_q8(q, vq, sc, k)
             return s.cpu().numpy(), i.cpu().numpy()
-        return top_k_similar(queries_2d, self.index.embeddings, k, assume_normalized=True)
+        s, i = top_k_similar(queries, self.index.embeddings, k, assume_normalized=True)
+        return np.atleast_2d(s), np.atleast_2d(i)
 
     @classmethod
     def from_file(
@@ -126,7 +129,8 @@ class SearchIndex:
         return self.search_with_embedding(self._require_encoder().encode_image(image), k)
 
     def search_batch(self, queries: np.ndarray, k: int = 5) -> list[list[SearchResult]]:
-        """Query matrix (Q, D) → one result list per query."""
+        """Query matrix (Q, D) → one result list per query; a (D,) query is
+        one query."""
         queries = np.asarray(queries, np.float32)
         if len(self.index) == 0:
             return [[] for _ in range(queries.shape[0])]

@@ -23,10 +23,14 @@ def top_k_similar(
     k: int = 5,
     assume_normalized: bool = False,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """→ (scores, indices) as numpy, k clamped to N."""
+    """→ (scores, indices) as numpy, k clamped to N; ``k == 0`` gives empty
+    results and ``k < 0`` raises (``lax.top_k``'s contract in the JAX
+    package)."""
     n = candidates.shape[0]
     if n == 0:
         return np.zeros((0,), np.float32), np.zeros((0,), np.int32)
+    if k < 0:
+        raise ValueError(f"top_k_similar: k must be nonnegative, got {k}")
     k = min(k, n)
     query = torch.as_tensor(query, dtype=torch.float32, device=candidates.device)
     single = query.dim() == 1

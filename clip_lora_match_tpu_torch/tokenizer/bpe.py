@@ -1,8 +1,10 @@
 """From-scratch CLIP byte-pair-encoding tokenizer (PyTorch port's copy).
 
-Same ids as ``clip_lora_match_tpu/tokenizer/bpe.py``; this copy keeps only the
-pure-Python merge loop (the JAX package's optional C++ merge core is a build
-product the port does not load). Pure Python, no torch/HF.
+Same ids as ``clip_lora_match_tpu/tokenizer/bpe.py``'s pure-Python merge
+loop. A word's merges run in the C++ core (``tokenizer/native_bpe.py``) when
+its library builds, and in the Python loop otherwise; the special tokens the
+Python path seeds are answered before the C++ core, which knows none, so both
+give the same ids. No torch/HF.
 
 Behavioral contract (validated by golden tests against HF ``CLIPTokenizer``
 loaded from the same vocab/merges files):
@@ -152,6 +154,9 @@ class ClipTokenizer:
         self.unk_id = self.eot_id
         self._cache: dict[str, str] = {SOT_TOKEN: SOT_TOKEN, EOT_TOKEN: EOT_TOKEN}
         self._id_cache: dict[str, list[int]] = {}
+        self._merges_ranked = [tuple(m) for m in merges]
+        self._native = None  # the C++ merge core, built at the first word
+        self._native_tried = False
 
     # -- constructors -------------------------------------------------------
 
@@ -215,15 +220,31 @@ class ClipTokenizer:
         self._cache[token] = result
         return result
 
+    def _get_native(self):
+        if not self._native_tried:
+            self._native_tried = True
+            from clip_lora_match_tpu_torch.tokenizer.native_bpe import NativeBPE, native_bpe_available
+
+            if native_bpe_available():
+                self._native = NativeBPE(self.encoder, self._merges_ranked, self.unk_id)
+        return self._native
+
     def _word_ids(self, byte_word: str) -> list[int]:
-        """Byte-alphabet word → ids through the pure-Python merge loop."""
+        """Byte-alphabet word → ids: the Python path's cache first (it holds
+        the special tokens), then the C++ merge core when built, else the
+        Python merge loop."""
         cached = self._id_cache.get(byte_word)
         if cached is not None:
             return cached
-        ids = [
-            self.encoder.get(t, self.unk_id)
-            for t in self._bpe(byte_word).split(" ")
-        ]
+        ids = None
+        if byte_word not in self._cache:
+            native = self._get_native()
+            ids = native.encode_word(byte_word) if native is not None else None
+        if ids is None:
+            ids = [
+                self.encoder.get(t, self.unk_id)
+                for t in self._bpe(byte_word).split(" ")
+            ]
         self._id_cache[byte_word] = ids
         return ids
 

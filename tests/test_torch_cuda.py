@@ -1059,3 +1059,71 @@ def test_fused_search_on_cuda_launches_topk(gen):
     emb, dets = crop_embed_pipeline(det, enc, img)
     staged = index.cpu().numpy() @ emb[0]
     assert int(ids[0]) == int(np.argmax(staged)) and abs(float(scores[0]) - float(staged.max())) <= 1e-3
+
+
+# -- the image-file encode path and k = 0 on the card ----------------------------
+
+
+def _file_encoders(tmp_path, n_files=7):
+    import numpy as np
+    from PIL import Image
+
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig, PreprocessConfig
+    from clip_lora_match_tpu_torch.models.clip import init_params
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+
+    arch = ClipArchConfig(image_size=64, patch_size=32, vision_width=128, vision_layers=2, vision_heads=2,
+                          vision_mlp_dim=256, text_width=128, text_layers=2, text_heads=2, text_mlp_dim=256,
+                          projection_dim=64)
+    cfg = ClipConfig(arch=arch, preprocess=PreprocessConfig(image_size=64))
+    params = init_params(0, arch, device="cpu")
+    rng = np.random.default_rng(3)
+    paths = []
+    for i in range(n_files):
+        p = tmp_path / f"f{i}.jpg"
+        Image.fromarray(rng.integers(0, 255, (90 + i, 120, 3), dtype=np.uint8), "RGB").save(p, quality=92)
+        paths.append(str(p))
+    cpu = ClipEncoder(params, arch=arch, config=cfg, compute_dtype="float32", device="cpu")
+    card = ClipEncoder(params, arch=arch, config=cfg, compute_dtype="float32", device="cuda")
+    return paths, cpu, card
+
+
+def test_encode_image_files_on_cuda_matches_the_cpu(gen, tmp_path):
+    import numpy as np
+
+    from clip_lora_match_tpu_torch import ops
+
+    paths, cpu, card = _file_encoders(tmp_path)
+    want = cpu.encode_image_files(paths, batch_size=3, dct_scale=False)
+    ops.reset_launch_counts()
+    got = card.encode_image_files(paths, batch_size=3, dct_scale=False)
+    counts = ops.launch_counts()
+    assert got.shape == want.shape == (7, 64)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    # 3 batches through 2 layers, one attention_small launch each (no adapter: no lora_matmul)
+    assert counts["attention_small"] == 3 * 2
+
+
+def test_encode_image_files_pinned_path_equals_the_pageable_one(gen, tmp_path):
+    import numpy as np
+
+    paths, _, card = _file_encoders(tmp_path, n_files=11)
+    assert card.host_staging == "pinned"
+    pinned = card.encode_image_files(paths, batch_size=2)  # 6 batches: every ring slot reused
+    card.host_staging = "pageable"
+    pageable = card.encode_image_files(paths, batch_size=2)
+    np.testing.assert_allclose(pageable, pinned, atol=1e-6, rtol=0)
+
+
+def test_search_index_k0_on_cuda(gen):
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+    from clip_lora_match_tpu_torch.retrieval.search import SearchIndex
+
+    rows = torch.nn.functional.normalize(_rand(gen, 3000, 64), dim=1).cpu().numpy()
+    for quantize in ("none", "int8"):
+        idx = SearchIndex(EmbeddingIndex(rows, dim=64, device="cuda"), dim=64, quantize=quantize)
+        assert idx.search_with_embedding(rows[5], 0) == []
+        assert idx.search_batch(rows[:3], 0) == [[], [], []]
+        assert [r.index for r in idx.search_with_embedding(rows[5], 1)] == [5]
+        with pytest.raises(ValueError):
+            idx.search_with_embedding(rows[5], -1)

@@ -1,4 +1,4 @@
-"""Four faults of the port against the JAX package, each held on the CPU:
+"""Faults of the port against the JAX package, each held on the CPU:
 
 - an empty ``image_path`` is no image (the JAX seeker tests ``not image_path``);
 - a ``.pt`` index path reads and writes the reference's legacy torch dict, in
@@ -6,7 +6,11 @@
 - ``k`` past the streaming kernel's ``K_MAX`` takes the exact mid-band route
   below ``TWOPASS_MIN_N`` instead of the kernel's refusal;
 - ``model.quantize`` and ``model.compilation_cache_dir`` are read as the JAX
-  loader reads them, and ``quantize: int8`` is refused until W8A8 is ported.
+  loader reads them, and ``quantize: int8`` is refused until W8A8 is ported;
+- ``k == 0`` gives an empty result and ``k < 0`` raises, on every top-k route
+  and through ``SearchIndex`` and ``top_k_similar``;
+- ``SearchIndex.search_batch`` takes a (D,) query as one query;
+- a corrupt detector checkpoint is logged and the next candidate loads.
 """
 
 import os
@@ -27,7 +31,9 @@ from clip_lora_match_tpu.lora.adapter import init_lora as j_init_lora
 from clip_lora_match_tpu.models import clip as jclip
 from clip_lora_match_tpu.models.encoder import ClipEncoder as JEncoder
 from clip_lora_match_tpu.models.io import flatten_params as j_flatten
+from clip_lora_match_tpu.models.yolo.cropper import load_yolo_cropper as j_load_yolo_cropper
 from clip_lora_match_tpu.nn import layers as jlayers
+from clip_lora_match_tpu.retrieval.search import SearchIndex as JSearchIndex
 from clip_lora_match_tpu.retrieval.similarity import top_k_similar as j_top_k_similar
 from clip_lora_match_tpu.services.seeker import SeekerConfig as JSeekerConfig
 from clip_lora_match_tpu.services.seeker import SeekerService as JSeeker
@@ -36,7 +42,10 @@ from clip_lora_match_tpu_torch.core.config import load_clip_config
 from clip_lora_match_tpu_torch.index.store import EmbeddingIndex as TIndex
 from clip_lora_match_tpu_torch.models.encoder import ClipEncoder as TEncoder
 from clip_lora_match_tpu_torch.models.io import params_from_numpy
+from clip_lora_match_tpu_torch.models.yolo.cropper import load_yolo_cropper
+from clip_lora_match_tpu_torch.models.yolo.yolov8 import YoloV8Detector
 from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+from clip_lora_match_tpu_torch.retrieval.search import SearchIndex as TSearchIndex
 from clip_lora_match_tpu_torch.retrieval.similarity import top_k_similar
 from clip_lora_match_tpu_torch.services.seeker import SeekerConfig as TSeekerConfig
 from clip_lora_match_tpu_torch.services.seeker import SeekerService as TSeeker
@@ -241,3 +250,109 @@ def test_quantize_none_and_the_cache_dir_load_as_jax(tmp_path):
     assert np.isfinite(enc.encode_text("tas pink")).all()
     default = load_clip_config(_tiny_yaml(tmp_path / "plain.yaml", ""))
     assert (default.quantize, default.compilation_cache_dir) == ("none", None)
+
+
+# -- 5. k == 0 and k < 0 below the seeker ----------------------------------------
+
+
+def _search_indexes(quantize, n=300):
+    rows = _unit_rows(11, n)
+    meta = [f"item{i}" for i in range(n)]
+    j = JSearchIndex(JIndex(rows, meta, meta), dim=DIM, quantize=quantize)
+    t = TSearchIndex(TIndex(rows, meta, meta, device="cpu"), dim=DIM, quantize=quantize, device="cpu")
+    return rows, j, t
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_search_index_k0_is_empty_and_negative_k_raises_as_jax(quantize):
+    rows, j, t = _search_indexes(quantize)
+    q = rows[17] * 2.0
+    assert t.search_with_embedding(q, 0) == j.search_with_embedding(q, 0) == []
+    assert t.search_batch(np.stack([q, rows[3]]), 0) == j.search_batch(np.stack([q, rows[3]]), 0) == [[], []]
+    with pytest.raises(ValueError):
+        j.search_with_embedding(q, -1)
+    with pytest.raises(ValueError):
+        t.search_with_embedding(q, -1)
+    with pytest.raises(ValueError):
+        t.search_batch(q[None], -1)
+
+
+@pytest.mark.parametrize("single", [True, False])
+def test_top_k_similar_k0_and_negative_k_as_jax(single):
+    rows = _unit_rows(12, 300)
+    q = np.random.default_rng(13).normal(size=(2, DIM)).astype(np.float32)
+    q = q[0] if single else q
+    s, i = top_k_similar(q, torch.from_numpy(rows), k=0)
+    js, ji = j_top_k_similar(jnp.asarray(q), jnp.asarray(rows), k=0)
+    assert s.shape == i.shape == np.shape(js) == np.shape(ji) == ((0,) if single else (2, 0))
+    assert (s.dtype, i.dtype) == (np.float32, np.int32)
+    with pytest.raises(ValueError):
+        j_top_k_similar(jnp.asarray(q), jnp.asarray(rows), k=-1)
+    with pytest.raises(ValueError):
+        top_k_similar(q, torch.from_numpy(rows), k=-1)
+
+
+def _route(name, q, rows, k):
+    if name == "auto":
+        return R.topk_retrieve_auto(q, rows, k)
+    if name == "midscale":
+        return R.topk_retrieve_midscale(q, rows, k)
+    if name == "twopass":
+        return R.topk_retrieve_twopass(q, rows, k, tile=16)
+    return R.topk_retrieve_q8(q, *R.quantize_index_int8(rows), k, tile=16)
+
+
+@pytest.mark.parametrize("n", [300, 70_000])  # below and at TWOPASS_MIN_N
+@pytest.mark.parametrize("route", ["auto", "midscale", "twopass", "q8"])
+def test_every_top_k_route_gives_k0_empty_and_refuses_negative_k(route, n):
+    """``topk_retrieve_auto(q, E, 0)`` on CPU tensors is the call the CUDA
+    branch of ``top_k_similar`` makes."""
+    rows = torch.from_numpy(_unit_rows(14, n, 32))
+    q = torch.from_numpy(np.random.default_rng(15).normal(size=(3, 32)).astype(np.float32))
+    s, i = _route(route, q, rows, 0)
+    assert s.shape == i.shape == (3, 0) and (s.dtype, i.dtype) == (torch.float32, torch.int32)
+    with pytest.raises(ValueError):
+        _route(route, q, rows, -1)
+    s1, i1 = _route(route, q, rows, 1)  # k = 1 still answers
+    assert s1.shape == i1.shape == (3, 1)
+
+
+# -- 6. search_batch with a (D,) query --------------------------------------------
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_search_batch_takes_a_1d_query_as_one_query(quantize):
+    """The JAX package's int8 ``search_batch`` fails on a (D,) query
+    (``topk_retrieve_q8`` reads ``queries.shape[1]``), so there the port is
+    held to its own (1, D) search, which the float route shows equal to
+    JAX's."""
+    rows, j, t = _search_indexes(quantize)
+    q = rows[42] + 0.1 * rows[7]
+    tres = t.search_batch(q, 5)
+    jres = j.search_batch(q[None] if quantize == "int8" else q, 5)
+    assert len(tres) == len(jres) == 1 and len(tres[0]) == 5
+    assert [r.index for r in tres[0]] == [r.index for r in jres[0]]
+    np.testing.assert_allclose([r.score for r in tres[0]], [r.score for r in jres[0]], atol=1e-5)
+    assert tres[0] == t.search_with_embedding(q, 5)
+
+
+# -- 7. a corrupt detector checkpoint ---------------------------------------------
+
+
+def test_a_truncated_detector_checkpoint_falls_back_to_the_committed_one(tmp_path, caplog):
+    synth = os.path.join(REPO, "models", "yolo_synth", "yolov8n_synth.npz")
+    data = open(synth, "rb").read()
+    half = tmp_path / "yolov8n_half.npz"
+    half.write_bytes(data[: len(data) // 2])
+    jc = j_load_yolo_cropper(weights_path=str(half))
+    with caplog.at_level("WARNING"):
+        tc = load_yolo_cropper(weights_path=str(half), device="cpu")
+    assert type(jc.detector).__name__ == type(tc.detector).__name__ == "YoloV8Detector"
+    assert any("yolov8n_half.npz" in r.getMessage() for r in caplog.records)
+    # the committed synth detector, as loaded directly
+    ref = load_yolo_cropper(weights_path=synth, device="cpu").detector
+    assert isinstance(tc.detector, YoloV8Detector)
+    assert tc.detector.cfg == ref.cfg
+    a = torch.cat([x.flatten() for x in jax.tree_util.tree_leaves(tc.detector.params)])
+    b = torch.cat([x.flatten() for x in jax.tree_util.tree_leaves(ref.params)])
+    assert torch.equal(a, b)
