@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only tilemax         # the three pass-1 kernels and the bodies' crossover
     python3 chip_smoke.py --stop-after 3         # phases 1-3 (an A/B of the main path's latency)
     python3 chip_smoke.py --stop-after 6         # phases 1-6 (an A/B without the image-file phase)
+    python3 chip_smoke.py --stop-after 7         # phases 1-7 (an A/B without the W8A8 phase)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -82,7 +83,24 @@ Phases (any failure raises and exits non-zero):
    share beside the float feed's (torch.profiler); (a) adds images/s over
    the renders and the photos with the DCT-scaled decode on and off, and
    over the renders by host staging (pinned, pageable), and one batch's
-   upload alone between CUDA events.
+   upload alone between CUDA events;
+8. adapter and weight persistence and W8A8 int8 serving: (a) phase 3's
+   adapter written by save_peft_adapter and save_lora, each read back by
+   load_lora on the card bit for bit, ClipEncoder.save read back by
+   load_params, and a from_config encoder over those weights and the PEFT
+   directory giving phase 3's embeddings bit for bit; (b) ViT-B/32 built by
+   from_config from a YAML with quantize: int8 and the PEFT adapter: the
+   int8 product on the card against its CPU run (codes and int32 products
+   bit-equal), text, image and fused requests over phase 3's index with
+   exact launch counts (no lora_matmul, no mlp_fused, four int8 products a
+   layer a tower pass), self-retrieval, cosine >= 0.995 against phase 3's
+   float encoder, latency, one fused request's busy and idle share and a
+   96-image batch's device ms beside the float encoder's, and the int8
+   product's device ms at the B/32 and L/14-336 shapes beside bf16
+   torch.matmul; (c), inside phase 5, one 32-image batch through the
+   L/14-336 encoder rebuilt with quantize="int8" (flash forced): launches,
+   cosine against the float batch, device ms by feed beside the float
+   encoder's and device time by kind of kernel.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -666,13 +684,14 @@ def profile_device_time(torch, name: str, fn, wall_ms: float, card: str) -> None
     rows = device_rows(torch, fn)
     if not rows:
         log(f"{name}: device time not measured (the profiler saw no device activity)")
-        return
+        return None
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
     log(f"{name}: device busy {dev_ms:.4f} ms of {wall_ms:.4f} ms wall "
         f"(idle share {1 - dev_ms / wall_ms:.3f}) [{card}]")
     for ms, count, key in rows[:8]:
         log(f"  {ms:9.4f} ms  x{count:<4d} {key[:90]}")
+    return dev_ms
 
 
 def check_k300(torch, index, enc, text):
@@ -1069,9 +1088,10 @@ def _cosines(got, ref):
     return (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
 
 
-def l14_path(torch, card, texts, images, paths, files=None):
-    """Phase 5, and phase 7 (b) over ``files`` (loader, renders, photos)
-    when given. Returns the launches of phase 5's counted run."""
+def l14_path(torch, card, texts, images, paths, files=None, w8a8=False):
+    """Phase 5, phase 7 (b) over ``files`` (loader, renders, photos) when
+    given, and phase 8 (c) when ``w8a8``. Returns the launches of phase 5's
+    counted run."""
     from concurrent.futures import ThreadPoolExecutor
 
     from clip_lora_match_tpu_torch import ops
@@ -1225,6 +1245,8 @@ def l14_path(torch, card, texts, images, paths, files=None):
                 f"min cosine {cos.min():.6f}")
             if files is not None:
                 l14_files(torch, card, enc, params, lora, lcfg, cfg, files)
+            if w8a8:
+                l14_w8a8(torch, card, enc, pix, img_k)
 
             # -- the image tower with flash and the fused MLP on and off ----------
             table = []
@@ -1872,6 +1894,324 @@ def image_files_path(torch, card, enc, files):
     log(f"phase 7 (a): {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: adapter and weight persistence, W8A8 int8 serving
+# ---------------------------------------------------------------------------
+
+
+def same_tree(torch, what: str, got, ref) -> None:
+    """Two nested dicts of tensors: the same keys, and every leaf of the same
+    type, shape and device and bit-equal."""
+    def walk(g, r, path):
+        if isinstance(r, dict):
+            if not isinstance(g, dict) or set(g) != set(r):
+                raise AssertionError(f"{what}: keys at {path or '/'} differ")
+            for k in r:
+                walk(g[k], r[k], f"{path}/{k}")
+        elif not (g.dtype == r.dtype and g.shape == r.shape and g.device == r.device and torch.equal(g, r)):
+            raise AssertionError(f"{what}: leaf {path} differs ({g.dtype} {tuple(g.shape)} {g.device} "
+                                 f"vs {r.dtype} {tuple(r.shape)} {r.device})")
+    walk(got, ref, "")
+
+
+def _by_kind(rows) -> dict:
+    """torch.profiler rows (ms, count, name) summed by kind of kernel."""
+    kinds: dict[str, list] = {}
+    for ms, count, name in rows:
+        low = name.lower()
+        gemm = any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_"))
+        if "memcpy" in low:
+            kind = "copies"
+        elif "flash" in low:
+            kind = "flash_attention"
+        elif any(t in low for t in ("attention_small", "lora_matmul", "mlp_fused")):
+            kind = next(t for t in ("attention_small", "lora_matmul", "mlp_fused") if t in low)
+        elif gemm and any(t in low for t in ("s8", "i8", "imma", "int8")):
+            kind = "int8 GEMM"
+        elif gemm:
+            kind = "float GEMM"
+        elif "reduce" in low:
+            kind = "reductions (LayerNorm mean/var, the per-token abs-max)"
+        elif "elementwise" in low or "vectorized" in low:
+            kind = "elementwise (LayerNorm, residual, quantize/dequantize, casts)"
+        else:
+            kind = "other"
+        row = kinds.setdefault(kind, [0.0, 0])
+        row[0] += ms
+        row[1] += count
+    return {k: (round(v[0], 4), v[1]) for k, v in sorted(kinds.items(), key=lambda kv: -kv[1][0])}
+
+
+def check_int8_on_card(torch, qenc) -> None:
+    """The int8 weights and product on the card against the same calls on
+    CPU tensors: the serving copy's weight codes and scales (quantized on the
+    card) bit-equal to a CPU quantization of the fp32 master, and on its
+    layer-0 operands the activation codes, scales and int32 products
+    bit-equal, outputs to fp32 rounding. M = 1 and 16 take the padded
+    product (torch._int_mm needs more than 16 rows)."""
+    from clip_lora_match_tpu_torch.quant.int8 import int8_matmul, int8_mm, quantize_linear_params, quantize_rows
+
+    params, _ = qenc._serving_state()
+    for tower in ("visual", "text"):
+        for grp, name in (("attn", "q_proj"), ("attn", "v_proj"), ("attn", "out_proj"), ("mlp", "fc1"),
+                          ("mlp", "fc2")):
+            master = qenc.params[tower]["blocks"][grp][name]["kernel"]
+            want = quantize_linear_params({"kernel": master.cpu()})
+            for i, layer in enumerate(params[tower]["blocks"]):
+                got = layer[grp][name]
+                if not (torch.equal(got["kernel_q"].cpu(), want["kernel_q"][i])
+                        and torch.equal(got["w_scale"].cpu(), want["w_scale"][i])):
+                    raise AssertionError(f"int8 weights of {tower} layer {i} {name}: the card's "
+                                         "quantization differs from the CPU's")
+    layer = params["visual"]["blocks"][0]
+    rng = np.random.default_rng(SEED + 8)
+    worst, equal = 0.0, 0
+    cases = 0
+    for M in (1, 16, 17, 50, 577, 4800):
+        for name, p in (("q/k/v", layer["attn"]["qkv"]), ("out_proj", layer["attn"]["out_proj"]),
+                        ("fc1", layer["mlp"]["fc1"]), ("fc2", layer["mlp"]["fc2"])):
+            K = p["kernel_q"].shape[0]
+            x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).cuda().to(torch.bfloat16)
+            xc, wc, sc = x.cpu(), p["kernel_q"].cpu(), p["w_scale"].cpu()
+            q, s_x = quantize_rows(x)
+            q_c, s_c = quantize_rows(xc)
+            if not (torch.equal(q.cpu(), q_c) and torch.equal(s_x.cpu(), s_c)):
+                raise AssertionError(f"int8 codes on the card differ from the CPU's: M={M} {name}")
+            if not torch.equal(int8_mm(q, p["kernel_q"]).cpu(), int8_mm(q_c, wc)):
+                raise AssertionError(f"int8 product on the card differs from the CPU's: M={M} {name}")
+            y, y_c = int8_matmul(x, p["kernel_q"], p["w_scale"]).cpu(), int8_matmul(xc, wc, sc)
+            rel = ((y - y_c).abs() / y_c.abs().clamp_min(1e-30)).max().item()
+            if not rel <= 2.0 ** -23:
+                raise AssertionError(f"int8_matmul on the card: relative error {rel} at M={M} {name}")
+            worst = max(worst, rel)
+            equal += int(torch.equal(y, y_c))
+            cases += 1
+    log(f"phase 8 (b) int8 on the card against the CPU: every block linear's weight codes and scales "
+        f"bit-equal; M = 1-4800 x q/k/v, out_proj, fc1, fc2 (layer 0): activation codes, scales and int32 "
+        f"products bit-equal in {cases} of {cases}; outputs bit-equal in {equal}, max relative error {worst:.3e}")
+
+
+def int8_gemm_rows(torch, card) -> None:
+    """The int8 product (torch._int_mm, a library call: the JAX package's
+    lax.dot_general outside any kernel) at the B/32 request shapes (M=50)
+    and the L/14-336 32-image batch (M=18,464), beside bf16 torch.matmul:
+    device ms per call (torch.profiler), the GEMM alone with the weight
+    column-major (the serving copy's layout) and row-major, and the whole
+    int8_matmul (quantize, GEMM, dequantize)."""
+    from clip_lora_match_tpu_torch.quant.int8 import int8_matmul, int8_mm, quantize_linear_params, quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for tag, M, K, N in (
+        ("B/32 q/k/v", 50, 768, 2304), ("B/32 out_proj", 50, 768, 768),
+        ("B/32 fc1", 50, 768, 3072), ("B/32 fc2", 50, 3072, 768),
+        ("L/14-336 q/k/v", 18464, 1024, 3072), ("L/14-336 out_proj", 18464, 1024, 1024),
+        ("L/14-336 fc1", 18464, 1024, 4096), ("L/14-336 fc2", 18464, 4096, 1024),
+    ):
+        x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+        w = torch.randn(K, N, device="cuda", generator=gen) * K ** -0.5
+        qp = quantize_linear_params({"kernel": w})
+        w_col = qp["kernel_q"].t().contiguous().t()
+        xq, _ = quantize_rows(x)
+        wb = w.to(torch.bfloat16)
+        t = {
+            "int8 GEMM (W col-major)": device_ms(torch, lambda: int8_mm(xq, w_col)),
+            "int8 GEMM (W row-major)": device_ms(torch, lambda: int8_mm(xq, qp["kernel_q"])),
+            "int8_matmul": device_ms(torch, lambda: int8_matmul(x, w_col, qp["w_scale"])),
+            "bf16 matmul": device_ms(torch, lambda: torch.matmul(x, wb)),
+        }
+        b8, by8 = bound_ms(M * K + K * N + 4 * M * N, 2 * M * K * N, "int8")
+        b16, by16 = bound_ms(2 * (M * K + K * N + M * N), 2 * M * K * N, "bf16")
+        log(f"phase 8 int8 product {tag} M={M} K={K} N={N}, device ms per call: "
+            f"{json.dumps({k: None if v is None else round(v, 5) for k, v in t.items()})}; "
+            f"bound int8 GEMM {b8:.5f} ({by8}), bf16 {b16:.5f} ({by16}) [{card}]")
+
+
+def w8a8_path(torch, card, enc, texts, images, index, lat3) -> None:
+    """Phase 8 (a) and (b) over phase 3's encoder and index."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import LoraConfig
+    from clip_lora_match_tpu_torch.lora import load_lora, save_lora, save_peft_adapter
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.models.io import load_params
+    from clip_lora_match_tpu_torch.quant import int8 as Q
+    from clip_lora_match_tpu_torch.services.seeker import SeekerConfig, SeekerService
+
+    t0 = time.perf_counter()
+    n, arch = len(texts), enc.arch
+    layers = arch.vision_layers  # == text_layers for B/32
+    lcfg = LoraConfig()
+    if len(index) != INDEX_ROWS + 2 * n or enc.lora_scaling != lcfg.scaling:
+        raise AssertionError(f"phase 8: phase 3's index has {len(index)} rows, scaling {enc.lora_scaling}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p8_")
+    try:
+        # -- (a) persistence ------------------------------------------------
+        peft_dir, native_dir = os.path.join(tmp, "peft"), os.path.join(tmp, "native")
+        save_peft_adapter(peft_dir, enc.lora, lcfg)
+        save_lora(native_dir, enc.lora, lcfg)
+        for name, d in (("PEFT", peft_dir), ("native", native_dir)):
+            tree, scale = load_lora(d, device="cuda", arch=arch)
+            if scale != lcfg.scaling:
+                raise AssertionError(f"phase 8 (a) {name} adapter: scaling {scale}")
+            same_tree(torch, f"phase 8 (a) {name} adapter", tree, enc.lora)
+        weights = os.path.join(tmp, "clip_b32.npz")
+        t = time.perf_counter()
+        enc.save(weights)
+        save_s = time.perf_counter() - t
+        same_tree(torch, "phase 8 (a) ClipEncoder.save -> load_params", load_params(weights, device="cuda"),
+                  enc.params)
+        ref_t, ref_i = enc.encode_text(texts), enc.encode_image(images)
+        peft_enc = ClipEncoder.from_config(None, weights_path=weights, lora_path=peft_dir, device="cuda")
+        got_t, got_i = peft_enc.encode_text(texts), peft_enc.encode_image(images)
+        del peft_enc
+        if not (np.array_equal(got_t, ref_t) and np.array_equal(got_i, ref_i)):
+            raise AssertionError(
+                f"phase 8 (a) from_config(PEFT dir): embeddings differ from phase 3's (max "
+                f"{max(np.abs(got_t - ref_t).max(), np.abs(got_i - ref_i).max()):.3e})")
+        log(f"phase 8 (a) persistence: PEFT ({os.path.getsize(os.path.join(peft_dir, 'adapter_model.safetensors'))} "
+            f"B) and native adapters read back bit for bit on the card; ClipEncoder.save "
+            f"({os.path.getsize(weights) / 1e6:.1f} MB, {save_s:.2f} s) -> load_params bit for bit; "
+            f"from_config(weights, PEFT dir) gives phase 3's {n} text and {n} image embeddings bit for bit")
+
+        # -- (b) W8A8 at B/32 -------------------------------------------------
+        cfg_path = os.path.join(tmp, "clip_int8.yaml")
+        with open(cfg_path, "w") as f:
+            f.write("model:\n  name: openai/clip-vit-base-patch32\n  quantize: int8\n")
+        qenc = ClipEncoder.from_config(cfg_path, weights_path=weights, lora_path=peft_dir, device="cuda")
+        if qenc.quantize != "int8" or qenc.compute_dtype != torch.bfloat16:
+            raise AssertionError(f"phase 8 (b): quantize {qenc.quantize}, compute {qenc.compute_dtype}")
+        check_int8_on_card(torch, qenc)
+        svc = SeekerService(qenc, SeekerConfig(), index=index)
+        fsvc = SeekerService(enc, SeekerConfig(), index=index)
+
+        ops.reset_launch_counts()
+        Q.int8_mm.calls = 0
+        text_res = [svc.search_items(description=t) for t in texts]
+        image_res = [svc.search_items(image_path=im) for im in images]
+        both_res = [svc.search_items(description=t, image_path=im) for t, im in zip(texts, images)]
+        torch.cuda.synchronize()
+        counts, gemms = ops.launch_counts(), Q.int8_mm.calls
+        log(f"phase 8 (b) launches: {json.dumps(counts)}, int8 products {gemms}")
+        want = {
+            "attention_small": 4 * n * layers, "lora_matmul": 0, "topk_retrieve": 3 * n,
+            "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0, "mlp_fused": 0, "flash_attention": 0,
+        }
+        if counts != want or gemms != 4 * layers * 4 * n:  # 4 a layer, 4n tower passes
+            raise AssertionError(f"phase 8 (b) launches {counts}, int8 products {gemms}: expected {want}, "
+                                 f"{4 * layers * 4 * n}")
+        for i in range(n):
+            t0r, i0r = text_res[i][0], image_res[i][0]
+            if t0r.index != INDEX_ROWS + i or t0r.score < 0.99:
+                raise AssertionError(f"phase 8 (b) text query {i}: top {t0r.index} {t0r.score}")
+            if i0r.index != INDEX_ROWS + n + i or i0r.score < 0.99:
+                raise AssertionError(f"phase 8 (b) image query {i}: top {i0r.index} {i0r.score}")
+            top5 = {r.index for r in both_res[i]}
+            if not {INDEX_ROWS + i, INDEX_ROWS + n + i} <= top5:
+                raise AssertionError(f"phase 8 (b) fused query {i}: top-5 {sorted(top5)}")
+        log("phase 8 (b) self-retrieval over phase 3's float rows: int8 text and image queries return "
+            f"their own rows first (min score {min(min(r[0].score for r in text_res), min(r[0].score for r in image_res)):.6f})")
+
+        rng = np.random.default_rng(SEED + 10)
+        pix = np.clip(rng.normal(0.0, 1.0, (96, arch.image_size, arch.image_size, 3)), -2, 2).astype(np.float32)
+        pix[:n] = enc.preprocessor.preprocess_images(images)
+        batch_texts = [f"{texts[i % n]} nomor {i}" for i in range(256)]
+        cos = {
+            "texts": _cosines(qenc.encode_text(texts), ref_t),
+            "images": _cosines(qenc.encode_image(images), ref_i),
+            "96-image batch": _cosines(qenc.encode_image_batch(pix), enc.encode_image_batch(pix)),
+            "256-text batch": _cosines(qenc.encode_text(batch_texts), enc.encode_text(batch_texts)),
+        }
+        lows = {k: float(v.min()) for k, v in cos.items()}
+        if not min(lows.values()) >= 0.995:
+            raise AssertionError(f"phase 8 (b) int8 vs float (bf16) cosines {lows}")
+        log(f"phase 8 (b) int8 vs phase 3's float encoder (both bf16 compute), min cosine per row: "
+            f"{json.dumps({k: round(v, 6) for k, v in lows.items()})}")
+
+        # -- latency and device time, float and int8 in turns -----------------
+        def calls(s):
+            return (
+                ("text", lambda: s.search_items(description=texts[0])),
+                ("image", lambda: s.search_items(image_path=images[0])),
+                ("both", lambda: s.search_items(description=texts[0], image_path=images[0])),
+            )
+
+        lat = {"float": [], "int8": []}
+        for name in ("float", "int8", "int8", "float"):
+            lat[name].append(_latency(torch, calls(fsvc if name == "float" else svc)))
+        log(f"phase 8 (b) B/32 seeker request latency, median of 10 (ms), two rounds in turns: "
+            f"{json.dumps(lat)}; phase 3's float run {json.dumps(lat3)} [{card}]")
+        busy = {}
+        for name, s in (("float", fsvc), ("int8", svc)):
+            busy[name] = profile_device_time(
+                torch, f"phase 8 (b) {name} fused request",
+                lambda: s.search_items(description=texts[0], image_path=images[0]),
+                statistics.median(r["both"] for r in lat[name]), card)
+        batch = {}
+        for name, e in (("float", enc), ("int8", qenc), ("int8", qenc), ("float", enc)):
+            batch.setdefault(name, []).append(device_ms(torch, lambda: e.encode_image_batch(pix), reps=3))
+        log(f"phase 8 (b) 96-image batch device ms (upload included), in turns: {json.dumps(batch)}; "
+            f"fused request busy ms {json.dumps(busy)} [{card}]")
+        rows = device_rows(torch, lambda: qenc.encode_image_batch(pix))
+        frows = device_rows(torch, lambda: enc.encode_image_batch(pix))
+        log(f"phase 8 (b) 96-image batch by kind (ms, count): int8 {json.dumps(_by_kind(rows))}; "
+            f"float {json.dumps(_by_kind(frows))} [{card}]")
+        del qenc, svc
+        torch.cuda.empty_cache()
+        int8_gemm_rows(torch, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 8 (a), (b): {time.perf_counter() - t0:.1f} s")
+
+
+def l14_w8a8(torch, card, enc, pix, img_k) -> None:
+    """Phase 8 (c): one 32-image batch through phase 5's L/14-336 encoder
+    rebuilt with quantize="int8" (inside phase 5's flash + fused-MLP flags)."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.quant import int8 as Q
+
+    t0 = time.perf_counter()
+    vl = enc.arch.vision_layers
+    qenc = ClipEncoder(enc.params, arch=enc.arch, config=enc.cfg, quantize="int8", device="cuda")
+    qenc.attach_lora(enc.lora, enc.lora_scaling)
+    ops.reset_launch_counts()
+    Q.int8_mm.calls = 0
+    got = qenc.encode_image_batch(pix)
+    torch.cuda.synchronize()
+    counts, gemms = ops.launch_counts(), Q.int8_mm.calls
+    want = {"attention_small": 0, "lora_matmul": 0, "topk_retrieve": 0, "tilemax": 0, "tilemax_sup": 0,
+            "tilemax_sup_q8": 0, "mlp_fused": 0, "flash_attention": vl}
+    if counts != want or gemms != 4 * vl:
+        raise AssertionError(f"phase 8 (c) launches {counts}, int8 products {gemms}")
+    if got.shape != img_k.shape or not np.isfinite(got).all():
+        raise AssertionError(f"phase 8 (c): shape {got.shape} or non-finite values")
+    cos = _cosines(got, img_k)
+    if not cos.min() >= 0.995:
+        raise AssertionError(f"phase 8 (c) int8 vs float batch: min cosine {cos.min()}")
+    u8 = torch.from_numpy(np.random.default_rng(SEED + 11).integers(
+        0, 256, pix.shape, dtype=np.uint8)).cuda()
+    u8_cos = _cosines(qenc._encode_u8(u8, True)[:len(pix)].cpu().numpy(),
+                      enc._encode_u8(u8, True)[:len(pix)].cpu().numpy())
+    if not u8_cos.min() >= 0.995:
+        raise AssertionError(f"phase 8 (c) int8 vs float, u8 feed: min cosine {u8_cos.min()}")
+    log(f"phase 8 (c) L/14-336 32-image batch, int8: launches {json.dumps(counts)}, int8 products {gemms}; "
+        f"min cosine against the float batch {cos.min():.6f} (float feed), {u8_cos.min():.6f} (u8 feed)")
+    feeds = {}
+    for name, e in (("float", enc), ("int8", qenc), ("int8", qenc), ("float", enc)):
+        feeds.setdefault(f"{name} float feed", []).append(
+            device_ms(torch, lambda: e.encode_image_batch(pix), reps=2))
+        feeds.setdefault(f"{name} u8 feed", []).append(device_ms(torch, lambda: e._encode_u8(u8, True), reps=2))
+    log(f"phase 8 (c) L/14-336 32-image batch device ms (float feed: upload included), in turns: "
+        f"{json.dumps(feeds)} [{card}]")
+    for name, e in (("int8", qenc), ("float", enc)):
+        rows = device_rows(torch, lambda: e._encode_u8(u8, True))
+        log(f"phase 8 (c) u8-feed batch by kind, {name} (ms, count): {json.dumps(_by_kind(rows))}")
+        for ms, count, key in sorted(rows, reverse=True)[:10]:
+            log(f"  {ms:9.4f} ms  x{count:<4d} {key[:100]}")
+    del qenc
+    torch.cuda.empty_cache()
+    log(f"phase 8 (c): {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1961,13 +2301,16 @@ def main() -> int:
             files = (loader, *file_corpus(tmp7))
             log(f"phase 7 files: {len(files[1])} renders (224^2, quality 92) and {len(files[2])} "
                 f"photos (1200x1600, quality 90) written in {time.perf_counter() - t:.2f} s")
-        l14 = l14_path(torch, card, texts, images, paths, files)
+        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after is None)
         for name in OFF_BY_DEFAULT:
             counts[name] = l14[name]
         torch.cuda.empty_cache()
         crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
         if files is not None:
             image_files_path(torch, card, enc, files)
+        if stop_after is None:
+            torch.cuda.empty_cache()
+            w8a8_path(torch, card, enc, texts, images, index, lat3)
     finally:
         if tmp7 is not None:
             shutil.rmtree(tmp7, ignore_errors=True)

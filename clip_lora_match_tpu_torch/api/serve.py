@@ -2,6 +2,11 @@
 
     python -m clip_lora_match_tpu_torch.api.serve --port 8000
     python -m clip_lora_match_tpu_torch.api.serve --device cpu --port 0
+    python -m clip_lora_match_tpu_torch.api.serve --lora <adapter dir> --clip-config <yaml>
+
+``--lora`` takes a native adapter dir or a PEFT one; a ``--clip-config``
+whose ``model.quantize`` is ``int8`` serves the towers W8A8
+(``quant/int8.py``).
 
 FastAPI + uvicorn when both import (``--binding fastapi``); otherwise the
 stdlib binding (``api/http_server.py``) serves the same REST surface. The
@@ -30,9 +35,12 @@ def _parser() -> argparse.ArgumentParser:
         help="HTTP stack: fastapi+uvicorn, the stdlib http.server binding, or auto "
         "(fastapi when fastapi and uvicorn import, stdlib otherwise)",
     )
-    p.add_argument("--clip-config", default="config/clip_config.yaml")
+    p.add_argument("--clip-config", default="config/clip_config.yaml",
+                   help="CLIP config YAML (model.quantize: int8 serves W8A8)")
     p.add_argument("--weights", default=None, help="base CLIP weights (.npz)")
-    p.add_argument("--lora", default=None, help="native LoRA adapter dir")
+    p.add_argument("--lora", default=None,
+                   help="LoRA adapter dir: native (lora_weights.npz + lora_config.json) or "
+                   "PEFT (adapter_model.safetensors + adapter_config.json)")
     p.add_argument("--seed", type=int, default=0, help="random-init seed when no --weights given")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p

@@ -8,6 +8,7 @@ from clip_lora_match_tpu_torch.core.config import (
     load_clip_config,
     load_db_config,
     load_yolo_config,
+    to_dict,
 )
 from clip_lora_match_tpu_torch.core.device import resolve_device
 
@@ -22,4 +23,5 @@ __all__ = [
     "load_db_config",
     "load_yolo_config",
     "resolve_device",
+    "to_dict",
 ]

@@ -4,8 +4,8 @@ The port's own copy of the parts of ``clip_lora_match_tpu/core/config.py`` the
 serving path needs: ``ClipArchConfig`` (with the same presets), ``ClipConfig``,
 ``PreprocessConfig``, ``LoraConfig`` and ``load_clip_config``, parsing the same
 ``config/clip_config.yaml``; ``YoloConfig`` with ``load_yolo_config`` for
-``config/yolo_config.yaml``; and ``DBConfig`` with ``load_db_config`` for
-``config/db_config.yaml``. Unknown keys are ignored.
+``config/yolo_config.yaml``; ``DBConfig`` with ``load_db_config`` for
+``config/db_config.yaml``; and ``to_dict``. Unknown keys are ignored.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import dataclasses
 import os
 import warnings
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import yaml
 
@@ -101,19 +101,28 @@ class PreprocessConfig:
 
 @dataclass(frozen=True)
 class ClipConfig:
-    """Mirrors the model and preprocess blocks of config/clip_config.yaml."""
+    """Mirrors config/clip_config.yaml (model/preprocess/paths/inference).
+    ``device`` is read and kept so that one YAML serves both packages; the
+    port's encoder runs on the device its caller names (``"cuda"`` by
+    default), whatever this field says."""
 
     model_name: str = "openai/clip-vit-base-patch32"
+    pretrained: bool = True
+    device: str = "tpu"
     dtype: str = "float32"
     compute_dtype: str = "bfloat16"  # matmul dtype on CUDA; fp32 accumulate
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
+    lora_weights_dir: str = "models/clip/lora"
+    checkpoints_dir: str = "models/saved"
+    logs_dir: str = "logs/clip"
+    batch_size: int = 16
+    num_workers: int = 4
     arch: Optional[ClipArchConfig] = None
     tokenizer_dir: Optional[str] = None
     # dispatch the hand-written CUDA kernels inside the towers on CUDA
     use_pallas_kernels: bool = True
-    # serving quantization of the transformer-block linears: "none" or "int8"
-    # (W8A8). Read as the JAX package reads it; the port has no W8A8 path yet,
-    # so ClipEncoder refuses anything but "none".
+    # serving quantization of the transformer-block linears: "none" (default)
+    # or "int8" (W8A8, quant/int8.py)
     quantize: str = "none"
     # the JAX package's persistent XLA compilation cache directory. Read and
     # kept so that one YAML serves both packages; it has no effect in PyTorch,
@@ -133,11 +142,16 @@ class ClipConfig:
 
 @dataclass(frozen=True)
 class LoraConfig:
-    """Mirrors config/lora_config.yaml lora/model blocks."""
+    """Mirrors config/lora_config.yaml lora/model blocks (r=8, alpha=16,
+    dropout 0.1, bias none, FEATURE_EXTRACTION, q/k/v/out_proj)."""
 
     r: int = 8
     alpha: int = 16
+    dropout: float = 0.1
+    bias: str = "none"
+    task_type: str = "FEATURE_EXTRACTION"
     target_modules: Sequence[str] = ("q_proj", "k_proj", "v_proj", "out_proj")
+    base_model_name: str = "openai/clip-vit-base-patch32"
 
     @property
     def scaling(self) -> float:
@@ -157,6 +171,8 @@ def load_clip_config(path: Optional[str] = None) -> ClipConfig:
     raw = _read_yaml(path)
     model = raw.get("model", {}) or {}
     pre = raw.get("preprocess", {}) or {}
+    paths = raw.get("paths", {}) or {}
+    inf = raw.get("inference", {}) or {}
     norm = pre.get("normalize", {}) or {}
     preprocess = PreprocessConfig(
         image_size=pre.get("image_size", 224),
@@ -168,9 +184,16 @@ def load_clip_config(path: Optional[str] = None) -> ClipConfig:
     )
     return ClipConfig(
         model_name=model.get("name", "openai/clip-vit-base-patch32"),
+        pretrained=model.get("pretrained", True),
+        device=model.get("device", "tpu"),
         dtype=model.get("dtype", "float32"),
         compute_dtype=model.get("compute_dtype", "bfloat16"),
         preprocess=preprocess,
+        lora_weights_dir=paths.get("lora_weights_dir", "models/clip/lora"),
+        checkpoints_dir=paths.get("checkpoints_dir", "models/saved"),
+        logs_dir=paths.get("logs_dir", "logs/clip"),
+        batch_size=inf.get("batch_size", 16),
+        num_workers=inf.get("num_workers", 4),
         tokenizer_dir=model.get("tokenizer_dir"),
         use_pallas_kernels=model.get("use_pallas_kernels", True),
         quantize=model.get("quantize", "none"),
@@ -266,3 +289,8 @@ def load_db_config(path: Optional[str] = None) -> DBConfig:
     block = raw.get("postgres", raw) or {}
     names = {f.name for f in dataclasses.fields(DBConfig)}
     return DBConfig(**{k: v for k, v in block.items() if k in names})
+
+
+def to_dict(cfg: Any) -> dict:
+    """Dataclass → plain dict (for JSON artifacts and checkpoint metadata)."""
+    return dataclasses.asdict(cfg)

@@ -3,6 +3,7 @@ from clip_lora_match_tpu_torch.index.build import (
     build_text_index,
     read_custom_items_csv,
     read_pairs_csv,
+    verify_index,
 )
 from clip_lora_match_tpu_torch.index.store import EmbeddingIndex, load_index_q8, save_index_q8
 
@@ -14,4 +15,5 @@ __all__ = [
     "read_custom_items_csv",
     "read_pairs_csv",
     "save_index_q8",
+    "verify_index",
 ]

@@ -1,11 +1,13 @@
 """Index builders (port of ``index/build.py``): batched encodes into an
-``EmbeddingIndex`` on the encoder's device."""
+``EmbeddingIndex`` on the encoder's device. ``encode_fn`` replaces the
+encoder's ``encode_text`` for a chunk of texts (another encoder, a sharded
+one); ``verify_index`` checks counts and unit norms."""
 
 from __future__ import annotations
 
 import csv
 import logging
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -20,11 +22,14 @@ def build_text_index(
     image_paths: Sequence[str],
     encoder: ClipEncoder,
     batch_size: int = 256,
+    encode_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None,
 ) -> EmbeddingIndex:
-    """Encode ``texts`` in batches → normalized index on the encoder's device."""
+    """Encode ``texts`` in batches (``encode_fn`` per chunk when given) →
+    normalized index on the encoder's device."""
+    encode = encode_fn or (lambda chunk: encoder.encode_text(list(chunk)))
     chunks = []
     for start in range(0, len(texts), batch_size):
-        chunks.append(encoder.encode_text(list(texts[start : start + batch_size])))
+        chunks.append(encode(texts[start : start + batch_size]))
         log.info("encoded %d/%d texts", min(start + batch_size, len(texts)), len(texts))
     emb = (
         np.concatenate(chunks)
@@ -73,7 +78,23 @@ def build_index_from_csv(
     encoder: ClipEncoder,
     custom_format: bool = False,
     batch_size: int = 256,
+    encode_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None,
 ) -> EmbeddingIndex:
     reader = read_custom_items_csv if custom_format else read_pairs_csv
     image_paths, texts = reader(csv_path)
-    return build_text_index(texts, image_paths, encoder, batch_size)
+    return build_text_index(texts, image_paths, encoder, batch_size, encode_fn)
+
+
+def verify_index(index: EmbeddingIndex) -> bool:
+    """True when every row has an image path and a text and unit norm
+    (within 1e-3); logs the counts otherwise."""
+    n = len(index)
+    norms = np.linalg.norm(index.embeddings_np(), axis=-1) if n else np.ones(0)
+    norm_ok = bool(np.allclose(norms, 1.0, atol=1e-3))
+    ok = len(index.image_paths) == n and len(index.texts) == n and norm_ok
+    if not ok:
+        log.warning(
+            "index verify failed: rows=%d paths=%d texts=%d norm_ok=%s",
+            n, len(index.image_paths), len(index.texts), norm_ok,
+        )
+    return ok

@@ -3,7 +3,9 @@
 The adapter tree mirrors the base tree's stacked-block layout:
 ``{tower: {"blocks": {"attn": {proj: {"a": (L, in, r), "b": (L, r, out)}}}}}``.
 Math: ``y = x@W + (α/r)·(x@A)@B``; B starts at zero, so a fresh adapter is a
-no-op. ``merge_lora`` folds it: ``W' = W + (α/r)·A@B``.
+no-op. ``merge_lora`` folds it: ``W' = W + (α/r)·A@B``. ``save_lora`` writes
+the native directory (``lora_weights.npz`` + ``lora_config.json``), and
+``load_lora`` reads it or a PEFT directory (``lora/peft_io.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from clip_lora_match_tpu_torch.core.config import ClipArchConfig, LoraConfig
-from clip_lora_match_tpu_torch.models.io import load_params, tree_map
+from clip_lora_match_tpu_torch.models.io import load_params, save_params, tree_map
 
 Params = dict[str, Any]
 log = logging.getLogger("clip_lora_match_tpu_torch.lora")
@@ -105,12 +107,36 @@ def merge_lora(params: Params, lora: Params, scaling: float) -> Params:
     return merged
 
 
-def load_lora(path: str, device: str | torch.device = "cuda") -> tuple[Params, float]:
-    """Load the native adapter dir (``lora_weights.npz`` + ``lora_config.json``,
-    as the JAX package's ``save_lora`` writes it). Returns (tree, scaling)."""
+def save_lora(path: str, lora: Params, cfg: LoraConfig) -> None:
+    """Native format: npz weights + lora_config.json sidecar."""
+    os.makedirs(path, exist_ok=True)
+    save_params(os.path.join(path, "lora_weights.npz"), lora)
+    with open(os.path.join(path, "lora_config.json"), "w") as f:
+        json.dump(
+            {
+                "r": cfg.r,
+                "alpha": cfg.alpha,
+                "dropout": cfg.dropout,
+                "target_modules": list(cfg.target_modules),
+                "base_model_name": cfg.base_model_name,
+            },
+            f,
+        )
+
+
+def load_lora(
+    path: str, device: str | torch.device = "cuda", arch: ClipArchConfig | None = None
+) -> tuple[Params, float]:
+    """Load a native adapter dir (``lora_weights.npz`` + ``lora_config.json``)
+    or, failing that, a PEFT adapter dir (``adapter_model.safetensors``,
+    stacked to ``arch``'s depth, ViT-B/32 by default). Returns (tree, scaling)."""
     native = os.path.join(path, "lora_weights.npz")
-    if not os.path.exists(native):
-        raise FileNotFoundError(f"no LoRA adapter (lora_weights.npz) under {path}")
-    with open(os.path.join(path, "lora_config.json")) as f:
-        meta = json.load(f)
-    return load_params(native, device=device), meta["alpha"] / meta["r"]
+    if os.path.exists(native):
+        with open(os.path.join(path, "lora_config.json")) as f:
+            meta = json.load(f)
+        return load_params(native, device=device), meta["alpha"] / meta["r"]
+    if os.path.exists(os.path.join(path, "adapter_model.safetensors")):
+        from clip_lora_match_tpu_torch.lora.peft_io import load_peft_adapter
+
+        return load_peft_adapter(path, arch=arch, device=device)
+    raise FileNotFoundError(f"no LoRA adapter found under {path}")

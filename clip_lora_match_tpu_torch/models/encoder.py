@@ -17,7 +17,10 @@ factors in the compute dtype, transformer layers unstacked into per-layer
 views, each adapted attention layer's q/k/v operands grouped for one
 ``lora_matmul`` launch) is built at the first encode and rebuilt only when
 the weights or the adapter change, so a request never re-reads the fp32 tree
-to cast it.
+to cast it. Under ``quantize="int8"`` (W8A8, ``quant/int8.py``) the serving
+copy's transformer-block linears are int8, quantized from the fp32 master;
+the other leaves take the float path's serving dtype, and the adapter stays
+fp32, cast per call to the type of the input it meets, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,8 +39,14 @@ from PIL import Image
 from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig, load_clip_config
 from clip_lora_match_tpu_torch.core.device import resolve_device
 from clip_lora_match_tpu_torch.models import clip as clip_model
-from clip_lora_match_tpu_torch.models.io import load_params, to_device
-from clip_lora_match_tpu_torch.nn.layers import QKV, group_qkv, kernel_flags, unstack_blocks
+from clip_lora_match_tpu_torch.models.io import load_params, save_params, to_device
+from clip_lora_match_tpu_torch.nn.layers import (
+    QKV,
+    group_int8_qkv,
+    group_qkv,
+    kernel_flags,
+    unstack_blocks,
+)
 from clip_lora_match_tpu_torch.preprocess.pipeline import ClipPreprocessor
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 96, 128, 256, 512, 1024)
@@ -69,7 +78,9 @@ def _serving_tree(tree, dtype: Optional[torch.dtype], key: str = ""):
     (``kernel``, ``a``, ``b``) cast to ``dtype``, everything else as is,
     stacked ``blocks`` unstacked into per-layer lists. LoRA ``a`` (in, r) is
     held as the transposed view of a contiguous (r, in) tensor, the layout
-    ``lora_matmul``'s kernel reads."""
+    ``lora_matmul``'s kernel reads, and an int8 ``kernel_q`` (in, out) as the
+    transposed view of a contiguous (out, in) one, the layout of the int8
+    product's K-contiguous operands."""
     if isinstance(tree, dict):
         out = {k: _serving_tree(v, dtype, k) for k, v in tree.items()}
         if "blocks" in out:
@@ -77,7 +88,7 @@ def _serving_tree(tree, dtype: Optional[torch.dtype], key: str = ""):
         return out
     if dtype is not None and key in ("kernel", "a", "b"):
         tree = tree.to(dtype)
-    if key == "a":
+    if key in ("a", "kernel_q"):
         tree = tree.transpose(-1, -2).contiguous().transpose(-1, -2)
     return tree
 
@@ -109,12 +120,16 @@ class ClipEncoder:
         lora=None,
         lora_scaling: float = 1.0,
         compute_dtype: Optional[str] = None,
+        quantize: Optional[str] = None,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
         self.cfg = config or ClipConfig()
-        _refuse_quantize(self.cfg)
         self.arch = arch or self.cfg.arch
+        # int8 W8A8 serving: the argument, else the config's model.quantize
+        self.quantize = quantize if quantize is not None else self.cfg.quantize
+        if self.quantize not in ("none", "int8"):
+            raise ValueError(f"unknown quantize mode {self.quantize!r}")
         on_cuda = self.device.type == "cuda"
         # explicit compute dtype wins; else the config's compute dtype on
         # CUDA and its storage dtype on the CPU; "float32" means fp32 compute
@@ -149,9 +164,10 @@ class ClipEncoder:
         """Build from the YAML config (``model.name`` picks the preset, a
         ``model.arch:`` block overrides it). Loads the ``.npz`` weights when
         given and found, else initializes from ``seed`` with a warning; a
-        missing LoRA directory warns and keeps the base weights."""
+        missing LoRA directory warns and keeps the base weights. The LoRA
+        directory is native or PEFT (``lora.adapter.load_lora``); a PEFT
+        adapter is stacked to this config's arch."""
         cfg = load_clip_config(config_path)
-        _refuse_quantize(cfg)  # before the weights are read
         arch = cfg.arch
         dev = resolve_device(device)
         if weights_path and os.path.exists(weights_path):
@@ -167,7 +183,7 @@ class ClipEncoder:
             from clip_lora_match_tpu_torch.lora.adapter import load_lora
 
             if os.path.exists(lora_path):
-                enc.attach_lora(*load_lora(lora_path, device=dev))
+                enc.attach_lora(*load_lora(lora_path, device=dev, arch=arch))
             else:
                 warnings.warn(f"LoRA weights not found at {lora_path}; using base model")
         return enc
@@ -204,10 +220,19 @@ class ClipEncoder:
         # both reach the first encode: one of them builds the copy
         with self._serving_lock:
             if self._serving is None:
-                params = _serving_tree(self.params, self.compute_dtype)
-                lora = None if self.lora is None else _serving_tree(self.lora, self.compute_dtype)
-                if lora is not None:
-                    _group_attention(params, lora, self.compute_dtype)
+                if self.quantize == "int8":
+                    from clip_lora_match_tpu_torch.quant.int8 import quantize_clip_params
+
+                    params = _serving_tree(quantize_clip_params(self.params), self.compute_dtype)
+                    for tower in ("visual", "text"):
+                        for layer in params[tower]["blocks"]:
+                            group_int8_qkv(layer["attn"])
+                    lora = None if self.lora is None else _serving_tree(self.lora, None)
+                else:
+                    params = _serving_tree(self.params, self.compute_dtype)
+                    lora = None if self.lora is None else _serving_tree(self.lora, self.compute_dtype)
+                    if lora is not None:
+                        _group_attention(params, lora, self.compute_dtype)
                 self._serving = (params, lora)
             return self._serving
 
@@ -383,6 +408,10 @@ class ClipEncoder:
         out = self.encode_text_batch(enc["input_ids"], enc["attention_mask"], normalize)
         return out[0] if single else out
 
+    def save(self, path: str) -> None:
+        """Write the fp32 master weights as a flat ``.npz`` (``models/io.py``)."""
+        save_params(path, self.params)
+
 
 class _PinnedRing:
     """Pinned host buffers of one shape, taken in turn; a buffer is handed out
@@ -414,15 +443,6 @@ def _drain(pending: deque, out: np.ndarray) -> None:
     ev, host, row, b = pending.popleft()
     ev.synchronize()
     out[row:row + b] = host[:b].numpy()
-
-
-def _refuse_quantize(cfg: ClipConfig) -> None:
-    """W8A8 serving (``model.quantize: int8``) is not ported: refuse it rather
-    than serve float."""
-    if cfg.quantize != "none":
-        raise NotImplementedError(
-            f"model.quantize={cfg.quantize!r}: W8A8 serving is not ported to PyTorch yet"
-        )
 
 
 def load_clip_model(

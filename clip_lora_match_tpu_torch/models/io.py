@@ -1,15 +1,17 @@
-"""Weight bridge: the JAX package's flat ``.npz`` parameter files → torch trees.
+"""Weight bridge: flat ``.npz`` parameter files ↔ torch trees.
 
-The JAX package writes its parameter tree with ``flatten_params``
-(``clip_lora_match_tpu/models/io.py``): one array per leaf under a
-``"/"``-joined key, the stacked leading layer axis and the ``(in, out)``
-kernel layout kept. ``params_from_numpy`` turns such a flat dict into the
-port's nested dict of tensors, unchanged in layout; the same holds for LoRA
-trees (``{"a": (L, in, r), "b": (L, r, out)}`` per projection).
+The file format is the JAX package's (``clip_lora_match_tpu/models/io.py``):
+one array per leaf under a ``"/"``-joined key, the stacked leading layer axis
+and the ``(in, out)`` kernel layout kept; a list's items sit under numbered
+keys. ``params_from_numpy`` turns such a flat dict into the port's nested
+dict of tensors, unchanged in layout, and ``save_params`` writes one; the same
+holds for LoRA trees (``{"a": (L, in, r), "b": (L, r, out)}`` per
+projection). Either package reads the other's files.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
@@ -30,6 +32,23 @@ def params_from_numpy(
     from clip_lora_match_tpu_torch.core.device import resolve_device
 
     return to_device(unflatten(flat), resolve_device(device), dtype)
+
+
+def flatten_params(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dicts and lists of tensors → flat ``{"a/b/c": array}`` on the
+    host (list items under numbered keys)."""
+    flat = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat.update(flatten_params(v, f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            flat.update(flatten_params(v, f"{prefix}{i}{_SEP}"))
+    else:
+        if isinstance(tree, torch.Tensor):
+            tree = tree.detach().cpu().numpy()
+        flat[prefix.rstrip(_SEP)] = np.asarray(tree)
+    return flat
 
 
 def unflatten(flat: dict) -> Params:
@@ -64,6 +83,12 @@ def to_device(tree, device, dtype: torch.dtype | None = None):
         return t.to(device)
 
     return tree_map(conv, tree)
+
+
+def save_params(path: str, params) -> None:
+    """Write a tree as the flat ``.npz`` both packages' ``load_params`` read."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flatten_params(params))
 
 
 def load_params(

@@ -23,6 +23,13 @@ everywhere). The choice is made per call from the tensor's device, so
 encoders on different devices never switch each other. ``fused_lora`` and
 ``small_attention`` default to ``"auto"``; ``flash_attention`` and
 ``fused_mlp`` default to ``False``, as in the JAX package.
+
+Int8 (W8A8) weights (``quant/int8.py``: ``kernel_q`` int8, ``w_scale`` fp32)
+take ``int8_matmul`` before any kernel branch: ``linear`` quantizes its input
+as given, ``attention`` its compute-dtype input once for q/k/v together, and
+the float LoRA deltas and biases are added after the dequantized product, as
+in the JAX package. Under int8 neither ``lora_matmul`` nor ``mlp_fused``
+runs; the attention core dispatches as on the float path.
 """
 
 from __future__ import annotations
@@ -145,6 +152,15 @@ def linear(
 ) -> torch.Tensor:
     """y = x @ kernel + bias [+ lora_scaling · (x @ a) @ b], in x's dtype."""
     out_dtype = x.dtype
+    if "kernel_q" in p:
+        from clip_lora_match_tpu_torch.quant.int8 import int8_matmul
+
+        y = int8_matmul(x, p["kernel_q"], p["w_scale"])
+        if lora is not None:
+            y = y + _lora_delta(x, lora, lora_scaling)
+        if p.get("bias") is not None:
+            y = y + p["bias"].to(y.dtype)
+        return y.to(out_dtype)
     w = p["kernel"]
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -210,6 +226,30 @@ def group_qkv(p: Params, lora: Optional[Params], dtype: Optional[torch.dtype] = 
     return {"kernel": w, "a": a, "b": b, "bias": bias}
 
 
+def int8_qkv(p: Params) -> tuple[torch.Tensor, torch.Tensor]:
+    """An int8 attention layer's q, k and v as one product's operands:
+    ``kernel_q`` [Wq | Wk | Wv] (D, 3D) and ``w_scale`` (3D,). The serving
+    copy holds them in ``p["qkv"]`` (``group_int8_qkv``); else they are
+    concatenated per call."""
+    if "qkv" in p:
+        return p["qkv"]["kernel_q"], p["qkv"]["w_scale"]
+    return (torch.cat([p[n]["kernel_q"] for n in QKV], dim=1),
+            torch.cat([p[n]["w_scale"] for n in QKV]))
+
+
+def group_int8_qkv(p: Params) -> None:
+    """In an int8 attention layer: add ``p["qkv"]``, the concatenated
+    operands of ``int8_qkv``, with ``kernel_q`` column-major, the layout
+    ``torch._int_mm`` reads as the canonical int8 GEMM (K-contiguous
+    operands), and make the q/k/v ``kernel_q`` column views of it."""
+    wq, ws = int8_qkv(p)
+    wq = wq.t().contiguous().t()
+    p["qkv"] = {"kernel_q": wq, "w_scale": ws}
+    D = wq.shape[1] // 3
+    for i, n in enumerate(QKV):
+        p[n] = {**p[n], "kernel_q": wq[:, i * D:(i + 1) * D]}
+
+
 def attention(
     p: Params,
     x: torch.Tensor,
@@ -237,7 +277,8 @@ def attention(
     hd = D // H
     kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype)
     xc = x if compute_dtype is None else x.to(compute_dtype)
-    group = _lora_get(lora, "qkv")
+    quantized = "kernel_q" in p["q_proj"]
+    group = None if quantized else _lora_get(lora, "qkv")
     if group is not None and _kernel_on("fused_lora", x):
         from clip_lora_match_tpu_torch.ops.lora_matmul import lora_matmul
 
@@ -248,15 +289,21 @@ def attention(
         if group["bias"] is not None:
             qkv = qkv + group["bias"].to(qkv.dtype)
         q, k, v = qkv.to(x.dtype).unbind(0)
-    elif lora is not None and _kernel_on("fused_lora", x):
+    elif lora is not None and not quantized and _kernel_on("fused_lora", x):
         # x is cast once for the three projections
         q, k, v = (linear(p[n], xc, _lora_get(lora, n), **kw).to(x.dtype) for n in QKV)
     else:
-        acc_dtype = torch.float32 if compute_dtype is None else compute_dtype
-        w_qkv = group["kernel"] if group is not None else torch.cat([p[n]["kernel"] for n in QKV], dim=1)
-        if compute_dtype is not None:
-            w_qkv = w_qkv.to(compute_dtype)
-        qkv = torch.matmul(xc, w_qkv).to(acc_dtype)
+        if quantized:
+            # one per-token quantization of xc feeds the three projections
+            from clip_lora_match_tpu_torch.quant.int8 import int8_matmul
+
+            qkv = int8_matmul(xc, *int8_qkv(p))
+        else:
+            acc_dtype = torch.float32 if compute_dtype is None else compute_dtype
+            w_qkv = group["kernel"] if group is not None else torch.cat([p[n]["kernel"] for n in QKV], dim=1)
+            if compute_dtype is not None:
+                w_qkv = w_qkv.to(compute_dtype)
+            qkv = torch.matmul(xc, w_qkv).to(acc_dtype)
         biases = [p[n].get("bias") for n in QKV]
         if any(b is not None for b in biases):
             parts = [
@@ -306,7 +353,8 @@ def mlp(
     compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     # fc1 -> quick-gelu -> fc2 in one kernel when neither matrix carries an
-    # adapter and both have plain weights and biases (the kernel's signature)
+    # adapter and both have plain weights and biases (the kernel's signature;
+    # int8 weights carry kernel_q, not kernel, and keep the linear path)
     if (
         _kernel_on("fused_mlp", x)
         and _lora_get(lora, "fc1") is None

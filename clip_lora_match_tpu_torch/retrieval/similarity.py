@@ -17,6 +17,17 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp_min(eps)
 
 
+def cosine_similarity(
+    query: torch.Tensor | np.ndarray, candidates: torch.Tensor | np.ndarray
+) -> torch.Tensor:
+    """(D,)|(Q, D) × (N, D) → (N,)|(Q, N) fp32 cosine scores."""
+    query = torch.as_tensor(query)
+    q = l2_normalize(torch.atleast_2d(query).float())
+    c = l2_normalize(torch.as_tensor(candidates, device=q.device).float())
+    sims = q @ c.T
+    return sims[0] if query.dim() == 1 else sims
+
+
 def top_k_similar(
     query: torch.Tensor | np.ndarray,
     candidates: torch.Tensor,

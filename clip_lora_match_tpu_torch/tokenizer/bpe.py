@@ -31,7 +31,7 @@ import functools
 import json
 import os
 import unicodedata
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import regex as re
@@ -145,9 +145,11 @@ class ClipTokenizer:
         max_length: int = 77,
     ):
         self.encoder = dict(vocab)
+        self.decoder = {v: k for k, v in self.encoder.items()}
         self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
         self.max_length = max_length
         self.byte_encoder = bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.sot_id = self.encoder[SOT_TOKEN]
         self.eot_id = self.encoder[EOT_TOKEN]
         self.pad_id = self.eot_id  # CLIP pads with <|endoftext|>
@@ -185,6 +187,10 @@ class ClipTokenizer:
         vocab, merges = build_fallback_vocab_and_merges()
         return cls(vocab, merges, max_length=max_length)
 
+    @property
+    def vocab_size(self) -> int:
+        return len(self.encoder)
+
     # -- BPE core ------------------------------------------------------------
 
     def _bpe(self, token: str) -> str:
@@ -219,6 +225,14 @@ class ClipTokenizer:
         result = " ".join(word)
         self._cache[token] = result
         return result
+
+    def tokenize(self, text: str) -> list[str]:
+        """Text → BPE token strings (no specials)."""
+        tokens: list[str] = []
+        for word in _WORD_PATTERN.findall(clean_text(text)):
+            byte_word = "".join(self.byte_encoder[b] for b in word.encode("utf-8"))
+            tokens.extend(self._bpe(byte_word).split(" "))
+        return tokens
 
     def _get_native(self):
         if not self._native_tried:
@@ -257,6 +271,17 @@ class ClipTokenizer:
             return [self.sot_id] + ids + [self.eot_id]
         return ids
 
+    def decode(self, ids: Iterable[int], skip_specials: bool = True) -> str:
+        toks = []
+        for i in ids:
+            tok = self.decoder.get(int(i), "")
+            if skip_specials and tok in (SOT_TOKEN, EOT_TOKEN):
+                continue
+            toks.append(tok)
+        text = "".join(toks)
+        data = bytes(self.byte_decoder[c] for c in text if c in self.byte_decoder)
+        return data.decode("utf-8", errors="replace").replace("</w>", " ").strip()
+
     # -- batch encoding -------------------------------------------------------
 
     def __call__(
@@ -289,3 +314,16 @@ class ClipTokenizer:
             input_ids[i, : len(s)] = s
             mask[i, : len(s)] = 1
         return {"input_ids": input_ids, "attention_mask": mask}
+
+    # -- interop --------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write vocab.json + merges.txt (HF CLIPTokenizer-compatible)."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+            json.dump(self.encoder, f, ensure_ascii=False)
+        inv = sorted(self.bpe_ranks.items(), key=lambda kv: kv[1])
+        with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n")
+            for (a, b), _ in inv:
+                f.write(f"{a} {b}\n")

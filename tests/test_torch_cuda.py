@@ -30,7 +30,10 @@ wrappers' refusals. Each kernel test asserts that the wrapper's launch
 counter moved. The YOLO crop stage (no kernel of its own: cuDNN convs) is
 held against its CPU run: the committed detector in fp32 and bf16,
 ``nms_fixed``, the device crop, and the fused search through
-``topk_retrieve``.
+``topk_retrieve``. The W8A8 int8 product (``torch._int_mm``, a library call)
+is held against its CPU run at M = 1 to 577 (padded below 17 rows), a PEFT
+adapter is loaded onto the card, and a quantized encoder launches neither
+``lora_matmul`` nor ``mlp_fused``.
 """
 
 import pytest
@@ -1127,3 +1130,94 @@ def test_search_index_k0_on_cuda(gen):
         assert [r.index for r in idx.search_with_embedding(rows[5], 1)] == [5]
         with pytest.raises(ValueError):
             idx.search_with_embedding(rows[5], -1)
+
+
+# -- W8A8 int8 serving and PEFT adapters on the card -------------------------------
+
+
+@pytest.mark.parametrize("M", [1, 16, 17, 50, 577])
+def test_int8_matmul_on_cuda_matches_the_cpu(gen, M):
+    """torch._int_mm takes more than 16 rows on CUDA: M <= 16 is padded.
+    Weight codes, activation codes and int32 products bit-equal to the CPU's,
+    outputs to fp32 rounding, for row- and column-major weights."""
+    from clip_lora_match_tpu_torch.quant import int8 as Q
+
+    for K, N in ((768, 2304), (3072, 768)):
+        x = _rand(gen, M, K, dtype=torch.bfloat16)
+        w = _rand(gen, K, N, scale=K ** -0.5)
+        qp, qc = Q.quantize_linear_params({"kernel": w}), Q.quantize_linear_params({"kernel": w.cpu()})
+        assert torch.equal(qp["kernel_q"].cpu(), qc["kernel_q"]) and torch.equal(qp["w_scale"].cpu(), qc["w_scale"])
+        xq, s = Q.quantize_rows(x)
+        xqc, sc = Q.quantize_rows(x.cpu())
+        assert torch.equal(xq.cpu(), xqc) and torch.equal(s.cpu(), sc)
+        for wq in (qp["kernel_q"], qp["kernel_q"].t().contiguous().t()):
+            before = Q.int8_mm.calls
+            yi = Q.int8_mm(xq, wq)
+            assert Q.int8_mm.calls == before + 1
+            assert yi.shape == (M, N) and yi.dtype == torch.int32 and yi.is_contiguous()
+            assert torch.equal(yi.cpu(), Q.int8_mm(xqc, wq.cpu()))
+            y = Q.int8_matmul(x, wq, qp["w_scale"])
+            yc = Q.int8_matmul(x.cpu(), wq.cpu(), qc["w_scale"])
+            torch.cuda.synchronize()
+            assert ((y.cpu() - yc).abs() <= yc.abs() * 2.0 ** -23).all()
+
+
+def test_load_lora_of_a_peft_dir_on_cuda(gen, tmp_path):
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, LoraConfig
+    from clip_lora_match_tpu_torch.lora import init_lora, load_lora, save_lora, save_peft_adapter
+
+    arch = ClipArchConfig(vision_layers=2, text_layers=3)
+    lora = init_lora(0, arch, LoraConfig(), device="cuda")
+    lora["text"]["blocks"]["attn"]["v_proj"]["b"] = _rand(gen, 3, 8, 512, scale=0.02)
+    save_peft_adapter(str(tmp_path / "peft"), lora, LoraConfig())
+    save_lora(str(tmp_path / "native"), lora, LoraConfig())
+    for d in ("peft", "native"):
+        tree, scale = load_lora(str(tmp_path / d), device="cuda", arch=arch)
+        assert scale == 2.0 and set(tree) == {"visual", "text"}
+        for tower in tree:
+            for proj, ab in tree[tower]["blocks"]["attn"].items():
+                for k in ("a", "b"):
+                    ref = lora[tower]["blocks"]["attn"][proj][k]
+                    assert ab[k].is_cuda and ab[k].dtype == torch.float32 and torch.equal(ab[k], ref)
+
+
+def test_quantized_encoder_launches_no_lora_or_mlp_kernel(gen):
+    """Under int8 the attention core takes attention_small as the float
+    encoder does, and neither lora_matmul nor mlp_fused runs, with the fused
+    MLP forced on; four int8 products a layer a tower pass."""
+    import numpy as np
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig, LoraConfig
+    from clip_lora_match_tpu_torch.lora import init_lora
+    from clip_lora_match_tpu_torch.models.clip import init_params
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+    from clip_lora_match_tpu_torch.quant import int8 as Q
+
+    arch = ClipArchConfig(image_size=64, patch_size=32, vision_width=128, vision_layers=2, vision_heads=2,
+                          vision_mlp_dim=256, text_width=128, text_layers=2, text_heads=2, text_mlp_dim=256,
+                          projection_dim=64)
+    params = init_params(0, arch, device="cuda")
+    lora = init_lora(1, arch, LoraConfig(), device="cuda")
+    for tower in lora.values():
+        for proj in tower["blocks"]["attn"].values():
+            proj["b"] = _rand(gen, *proj["b"].shape, scale=0.02)
+    encs = {}
+    for mode in ("none", "int8"):
+        encs[mode] = ClipEncoder(params, arch=arch, config=ClipConfig(arch=arch), quantize=mode, device="cuda")
+        encs[mode].attach_lora(lora, 2.0)
+    pix = np.random.default_rng(0).normal(size=(3, 64, 64, 3)).astype(np.float32)
+    with kernel_flags(fused_mlp=True):
+        ops.reset_launch_counts()
+        Q.int8_mm.calls = 0
+        got = encs["int8"].encode_image_batch(pix)
+        encs["int8"].encode_text(["tas pink", "payung hitam"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts["lora_matmul"] == 0 and counts["mlp_fused"] == 0
+        assert counts["attention_small"] == arch.vision_layers + arch.text_layers
+        assert Q.int8_mm.calls == 4 * (arch.vision_layers + arch.text_layers)
+        ref = encs["none"].encode_image_batch(pix)
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+    assert cos.min() >= 0.995

@@ -6,13 +6,15 @@
 - ``k`` past the streaming kernel's ``K_MAX`` takes the exact mid-band route
   below ``TWOPASS_MIN_N`` instead of the kernel's refusal;
 - ``model.quantize`` and ``model.compilation_cache_dir`` are read as the JAX
-  loader reads them, and ``quantize: int8`` is refused until W8A8 is ported;
+  loader reads them, and ``quantize: int8`` builds the W8A8 encoder the JAX
+  package builds;
 - ``k == 0`` gives an empty result and ``k < 0`` raises, on every top-k route
   and through ``SearchIndex`` and ``top_k_similar``;
 - ``SearchIndex.search_batch`` takes a (D,) query as one query;
 - a corrupt detector checkpoint is logged and the next candidate loads.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -230,12 +232,29 @@ def _tiny_yaml(path, extra):
 
 
 def test_quantize_int8_is_refused(tmp_path):
+    """Since W8A8 is ported, ``quantize: int8`` is no longer refused: it
+    builds an int8 encoder that matches the JAX package's int8 encoder on the
+    same weights, and an unknown mode raises ValueError in both packages."""
     cfg = _tiny_yaml(tmp_path / "int8.yaml", "  quantize: int8\n")
     assert load_clip_config(cfg).quantize == j_load_clip_config(cfg).quantize == "int8"
-    with pytest.raises(NotImplementedError, match="quantize"):
-        TEncoder.from_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TEncoder({}, config=load_clip_config(cfg), device="cpu")
+    with pytest.warns(UserWarning):
+        tenc = TEncoder.from_config(cfg, device="cpu")
+    assert tenc.quantize == "int8"
+    jcfg = j_load_clip_config(cfg)
+    jparams = jclip.init_params(jax.random.PRNGKey(0), jcfg.arch)
+    jenc = JEncoder(jparams, arch=jcfg.arch, config=dataclasses.replace(jcfg, use_pallas_kernels=False))
+    assert jenc.quantize == "int8"
+    tenc = TEncoder(params_from_numpy(j_flatten(jparams), device="cpu"), config=load_clip_config(cfg),
+                    device="cpu")
+    texts = ["tas pink di kantin", "payung hitam"]
+    got, ref = tenc.encode_text(texts), jenc.encode_text(texts)
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+    assert cos.min() >= 0.99999, cos
+    bad = _tiny_yaml(tmp_path / "int4.yaml", "  quantize: int4\n")
+    with pytest.raises(ValueError, match="int4"):
+        TEncoder({}, config=load_clip_config(bad), device="cpu")
+    with pytest.raises(ValueError):
+        JEncoder(jparams, arch=jcfg.arch, config=j_load_clip_config(bad))
 
 
 def test_quantize_none_and_the_cache_dir_load_as_jax(tmp_path):
