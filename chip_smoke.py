@@ -7,6 +7,7 @@
     python3 chip_smoke.py --stop-after 3         # phases 1-3 (an A/B of the main path's latency)
     python3 chip_smoke.py --stop-after 6         # phases 1-6 (an A/B without the image-file phase)
     python3 chip_smoke.py --stop-after 7         # phases 1-7 (an A/B without the W8A8 phase)
+    python3 chip_smoke.py --stop-after 8         # phases 1-8 (an A/B without the training phase)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -100,7 +101,30 @@ Phases (any failure raises and exits non-zero):
    torch.matmul; (c), inside phase 5, one 32-image batch through the
    L/14-336 encoder rebuilt with quantize="int8" (flash forced): launches,
    cosine against the float batch, device ms by feed beside the float
-   encoder's and device time by kind of kernel.
+   encoder's and device time by kind of kernel;
+9. contrastive LoRA training over phase 3's encoder (ViT-B/32, fp32, the
+   training precision): (a) the three differentiable kernels' gradients
+   through their autograd Functions (lora_matmul, its grouped q/k/v launch
+   adapter by adapter, attention_small maskless and causal+lengths,
+   mlp_fused) against autograd through their plain versions at the B=128
+   training shapes in fp32 and bf16, each backward's time beside its bound
+   and the plain autograd backward's, flash_attention refusing a
+   differentiable call, and one B/32 pass through both towers whose LoRA
+   gradients under the default "auto" flags equal those with the kernels
+   off; (b) train() through train/cli.py at full width on the in-repo CSVs
+   (batch 6, r=8, alpha=16, dropout 0.1, a YAML from config/lora_config.yaml,
+   phase 3's base weights): a run stopped after epoch 2 and resumed for the
+   third against an uninterrupted 3-epoch run, bit for bit (losses and the
+   adapter), the epoch_2 adapter (native and PEFT) through
+   ClipEncoder.from_config giving TrainResult.final_lora's text embeddings
+   bit for bit, and text searches over phase 3's index with it; (c) the
+   train step at B=128 (seeded uint8 224² pixels, 64-wide token ids) in four
+   configurations: (i) the trainer's flags at dropout 0.1, (ii) at dropout 0,
+   (iii) fused_lora and small_attention on at dropout 0 (its loss and
+   gradients held against (ii)), (iv) (i) with remat=True: step ms (median
+   of 10), device busy and idle share, device time by kind, peak memory,
+   launches; (d) make_chained_train_step K=4 against 4 single steps, bit for
+   bit.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -2212,6 +2236,459 @@ def l14_w8a8(torch, card, enc, pix, img_k) -> None:
     log(f"phase 8 (c): {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: contrastive LoRA training
+# ---------------------------------------------------------------------------
+
+# gradient checks against autograd through the plain versions: fp32, the same
+# products in another order (attention: max-free against exact softmax);
+# bf16, the rank-r partials, the hidden or P rounded at other places
+GRAD_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+ATTN_GRAD_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+TRAIN_B = 128  # phase 9 (a), (c): the training batch at B/32 width (image M = 6,400, text 8,192)
+
+
+def _normrel(torch, got, ref) -> float:
+    return ((got.double() - ref.double()).norm() / ref.double().norm().clamp_min(1e-30)).item()
+
+
+def _autograd(torch, fn, inputs, cot, need):
+    """fn(inputs) and the gradients of <fn(inputs), cot> for the inputs
+    ``need`` names."""
+    ts = [t.detach().clone().requires_grad_(n) for t, n in zip(inputs, need)]
+    out = fn(*ts)
+    return out.detach(), list(torch.autograd.grad(out, [t for t, n in zip(ts, need) if n], cot))
+
+
+def _bwd_row(torch, shape, kind, bwd, plain_fn, inputs, cot, need, nbytes, flops, err):
+    """A backward row: the backward function's wall and device ms per call,
+    the plain version's autograd backward (its graph kept), the bound (the
+    backward computes in fp32)."""
+    ts = [t.detach().clone().requires_grad_(n) for t, n in zip(inputs, need)]
+    out = plain_fn(*ts)
+    leaves = [t for t, n in zip(ts, need) if n]
+    plain = lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)  # noqa: E731
+    b_ms, b_by = bound_ms(nbytes, flops, "fp32")
+    return dict(shape=f"{shape} {kind}", ms=cuda_ms(torch, bwd, reps=10), device_ms=device_ms(torch, bwd, reps=3),
+                plain_ms=cuda_ms(torch, plain, reps=10), bound_ms=b_ms, bound_by=b_by, max_rel_err=err)
+
+
+def grad_checks(torch, card, gen) -> dict:
+    """Phase 9 (a): each differentiable kernel's forward and gradients
+    through its wrapper (the autograd Function around the kernel) against
+    autograd through its plain version, at the B/32 training shapes (B=128) in fp32
+    and bf16, and its backward's time beside its bound. Returns
+    {kernel: [rows]}, the first row the fp32 image-tower shape."""
+    from clip_lora_match_tpu_torch.nn.layers import QKV, group_qkv
+    from clip_lora_match_tpu_torch.ops import attention_small as A
+    from clip_lora_match_tpu_torch.ops import flash_attention as F
+    from clip_lora_match_tpu_torch.ops import lora_matmul as L
+    from clip_lora_match_tpu_torch.ops import mlp_fused as MF
+
+    rows = {"lora_matmul": [], "attention_small": [], "mlp_fused": []}
+    rnd = lambda *s, dtype=torch.float32, scale=1.0: (  # noqa: E731
+        torch.randn(*s, device="cuda", generator=gen) * scale).to(dtype)
+
+    def check(name, what, got, ref, tol):
+        """The wrapper's forward and gradients, ``got`` = (out, grads),
+        against the plain version's ``ref``."""
+        errs = [_normrel(torch, g, r) for g, r in zip([got[0], *got[1]], [ref[0], *ref[1]])]
+        if not max(errs) <= tol:
+            raise AssertionError(f"phase 9 (a) {name} {what}: forward, gradient errors {errs} > {tol}")
+        return max(errs)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "fp32" if dtype == torch.float32 else "bf16"
+        es = 4 if kind == "fp32" else 2
+        # -- lora_matmul: image and text projections; the frozen base takes no dW
+        for M, K, r in ((TRAIN_B * 50, 768, 8), (TRAIN_B * 64, 512, 8)):
+            N = K
+            ins = (rnd(M, K, dtype=dtype), rnd(K, N, dtype=dtype, scale=K ** -0.5),
+                   rnd(K, r, dtype=dtype, scale=0.05), rnd(r, N, dtype=dtype, scale=0.05))
+            cot, need = rnd(M, N, dtype=dtype), (True, False, True, True)
+            before = L.lora_matmul.launches
+            got = _autograd(torch, lambda *t: L.lora_matmul(*t, scaling=2.0), ins, cot, need)
+            if L.lora_matmul.launches != before + 1:
+                raise AssertionError("phase 9 (a) lora_matmul: the kernel did not launch")
+            ref = _autograd(torch, lambda *t: L.lora_matmul_plain(*t, scaling=2.0), ins, cot, need)
+            err = check("lora_matmul", f"M={M} K=N={K} r={r} {kind}", got, ref, GRAD_TOL[kind])
+            flops = 2 * M * N * K + 4 * M * N * r + 6 * M * K * r
+            nbytes = es * (2 * M * K + K * N + 2 * K * r + 2 * r * N + M * N)
+            rows["lora_matmul"].append(_bwd_row(
+                torch, f"backward (dx, dA, dB) M={M} K=N={K} r={r}", kind,
+                lambda: L.lora_matmul_backward(*ins, cot, 2.0, 1, need),
+                lambda *t: L.lora_matmul_plain(*t, scaling=2.0), ins, cot, need, nbytes, flops, err))
+        # -- the grouped q/k/v launch: each adapter its ungrouped gradient
+        D, r, M = 768, 8, TRAIN_B * 50
+        p = {n: {"kernel": rnd(D, D, dtype=dtype, scale=D ** -0.5), "bias": None} for n in QKV}
+        leaves = {n: {"a": rnd(D, r, dtype=dtype, scale=0.05).requires_grad_(True),
+                      "b": rnd(r, D, dtype=dtype, scale=0.05).requires_grad_(True)} for n in QKV}
+        x, cot3 = rnd(M, D, dtype=dtype), rnd(3, M, D, dtype=dtype)
+        g = group_qkv(p, leaves)
+        y = L.lora_matmul(x, g["kernel"], g["a"], g["b"], scaling=2.0, groups=3)
+        grouped = torch.autograd.grad(y, [leaves[n][ab] for n in QKV for ab in "ab"], cot3)
+        outs, ungrouped = [], []
+        for i, n in enumerate(QKV):
+            out, gs = _autograd(torch, lambda *t: L.lora_matmul(*t, scaling=2.0),
+                                (x, p[n]["kernel"], leaves[n]["a"], leaves[n]["b"]), cot3[i],
+                                (False, False, True, True))
+            outs.append(out)
+            ungrouped += gs
+        err = check("lora_matmul", f"grouped q/k/v M={M} {kind}", (y.detach(), grouped),
+                    (torch.stack(outs), ungrouped), GRAD_TOL[kind])
+        log(f"phase 9 (a) grouped q/k/v launch M={M} D={D} r={r} (grouped rank {3 * r}) {kind}: each of "
+            f"a_q/k/v, b_q/k/v gets its ungrouped launch's gradient (max normwise rel err {err:.3e})")
+        # -- attention_small: the image tower (maskless), the text tower (causal + lengths)
+        for B, S, H, causal in ((TRAIN_B, 50, 12, False), (TRAIN_B, 64, 8, True), (TRAIN_B, 77, 8, True)):
+            ins = [rnd(B, S, H, 64, dtype=dtype, scale=0.5) for _ in range(3)]
+            cot = rnd(B, S, H, 64, dtype=dtype)
+            kw = {}
+            if causal:
+                kw = dict(causal=True, lengths=torch.randint(
+                    1, S + 1, (B,), device="cuda", generator=gen, dtype=torch.int32))
+            before = A.attention_small.launches
+            got = _autograd(torch, lambda *t: A.attention_small(*t, **kw), ins, cot, (True,) * 3)
+            if A.attention_small.launches != before + 1:
+                raise AssertionError("phase 9 (a) attention_small: the kernel did not launch")
+            ref = _autograd(torch, lambda *t: A.attention_small_plain(*t, **kw), ins, cot, (True,) * 3)
+            mode = "causal+lengths" if causal else "maskless"
+            err = check("attention_small", f"B={B} S={S} H={H} {mode} {kind}", got, ref, ATTN_GRAD_TOL[kind])
+            scale = 64 ** -0.5
+            rows["attention_small"].append(_bwd_row(
+                torch, f"backward (dq, dk, dv) B={B} S={S} H={H} hd=64 {mode}", kind,
+                lambda: A.attention_small_backward(*ins, cot, None, scale, causal, kw.get("lengths")),
+                lambda *t: A.attention_small_plain(*t, **kw), ins, cot, (True,) * 3,
+                7 * B * S * H * 64 * es, 12 * B * H * S * S * 64, err))
+        # -- mlp_fused: the image and text MLPs; every gradient checked, dx timed
+        for M, K, Hd in ((TRAIN_B * 50, 768, 3072), (TRAIN_B * 64, 512, 2048)):
+            ins = (rnd(M, K, dtype=dtype), rnd(K, Hd, dtype=dtype, scale=K ** -0.5), rnd(Hd, scale=0.1),
+                   rnd(Hd, K, dtype=dtype, scale=Hd ** -0.5), rnd(K, scale=0.1))
+            cot = rnd(M, K, dtype=dtype)
+            before = MF.mlp_fused.launches
+            got = _autograd(torch, MF.mlp_fused, ins, cot, (True,) * 5)
+            if MF.mlp_fused.launches != before + 1:
+                raise AssertionError("phase 9 (a) mlp_fused: the kernel did not launch")
+            ref = _autograd(torch, MF.mlp_fused_plain, ins, cot, (True,) * 5)
+            err = check("mlp_fused", f"M={M} K={K} H={Hd} {kind}", got, ref, GRAD_TOL[kind])
+            need = (True, False, False, False, False)
+            rows["mlp_fused"].append(_bwd_row(
+                torch, f"backward (dx) M={M} K=N={K} H={Hd}", kind,
+                lambda: MF.mlp_fused_backward(*ins, cot, need), MF.mlp_fused_plain, ins, cot, need,
+                es * (2 * M * K + 2 * K * Hd) + 4 * (Hd + K) + es * M * K, 6 * M * K * Hd, err))
+        torch.cuda.empty_cache()
+    # -- flash_attention: no backward, so a differentiable call raises
+    q = rnd(2, 200, 2, 64).requires_grad_(True)
+    before = F.flash_attention.launches
+    try:
+        F.flash_attention(q, q.detach(), q.detach())
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase 9 (a) flash_attention under grad returned a result")
+    if F.flash_attention.launches != before:
+        raise AssertionError("phase 9 (a) flash_attention under grad launched its kernel")
+    for name, rs in rows.items():
+        for row in rs:
+            log(f"phase 9 (a) {name} {row['shape']}: forward and gradients within tolerance (max normwise rel err "
+                f"{row['max_rel_err']:.3e}); backward ms {row['ms']:.4f} device_ms {fmt(row['device_ms'])} "
+                f"plain autograd backward ms {row['plain_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+                f"({row['bound_by']}, fp32 products) [{card}]")
+    log("phase 9 (a) flash_attention with an input that requires grad raises, and launches nothing")
+    return rows
+
+
+def tower_grads(torch, params, lora, arch, batch, eot, **flags):
+    """Loss and LoRA gradients of one pass through both towers at fp32 (the
+    training precision) under ``flags``."""
+    from clip_lora_match_tpu_torch.core.config import LoraConfig
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+    from clip_lora_match_tpu_torch.models.io import tree_leaves, unflatten
+    from clip_lora_match_tpu_torch.train.loss import clip_contrastive_loss
+    from clip_lora_match_tpu_torch.train.step import batch_to_device, tower_features
+
+    pairs = tree_leaves(lora)
+    live = [t.detach().clone().requires_grad_(True) for _, t in pairs]
+    tree = unflatten({path: t for (path, _), t in zip(pairs, live)})
+    with kernel_flags(**flags):
+        img, txt = tower_features(params, tree, batch_to_device(batch, torch.device("cuda")), arch,
+                                  LoraConfig(dropout=0.0), eot, None, False)
+        loss = clip_contrastive_loss(img, txt)
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), [(path, g) for (path, _), g in zip(pairs, grads)]
+
+
+def _hold_grads(torch, what, got, ref, tol) -> float:
+    (lk, gk), (lp, gp) = got, ref
+    worst = abs(lk.item() - lp.item()) / abs(lp.item())
+    for (path, a), (_, b) in zip(gk, gp):
+        if not (b.norm() > 0 and a.norm() > 0):
+            raise AssertionError(f"{what}: adapter {path} has no gradient")
+        worst = max(worst, _normrel(torch, a, b))
+    if not worst <= tol:
+        raise AssertionError(f"{what}: loss or gradients differ by {worst} > {tol}")
+    return worst
+
+
+def train_batch(enc, n: int, S: int, seed: int) -> dict:
+    """A seeded training batch: uint8 224² pixels and ``S``-wide token ids
+    (EOT-padded, prefix masks, every row's EOT inside the S columns)."""
+    rng = np.random.default_rng(seed)
+    eot = enc.preprocessor.tokenizer.eot_id
+    S = min(S, enc.arch.max_text_length)
+    lens = rng.integers(5, S, n)
+    ids = np.full((n, S), eot, np.int32)
+    mask = np.zeros((n, S), np.int32)
+    for i, k in enumerate(lens):
+        ids[i, :k - 1] = rng.integers(1, eot - 1, k - 1)
+        mask[i, :k] = 1
+    return {"pixel_values": rng.integers(0, 256, (n, enc.arch.image_size, enc.arch.image_size, 3), dtype=np.uint8),
+            "input_ids": ids, "attention_mask": mask}
+
+
+def repaired_fault(torch, enc) -> None:
+    """Phase 9 (a): one B/32 pass through both towers (8 pairs) whose LoRA
+    gradients under the default "auto" flags, through the kernels, equal
+    those with the kernels off."""
+    from clip_lora_match_tpu_torch import ops
+
+    batch = train_batch(enc, 8, 77, SEED + 20)
+    eot = enc.preprocessor.tokenizer.eot_id
+    ops.reset_launch_counts()
+    auto = tower_grads(torch, enc.params, enc.lora, enc.arch, batch, eot)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    layers = enc.arch.vision_layers + enc.arch.text_layers
+    if counts["lora_matmul"] != 4 * layers or counts["attention_small"] != layers:
+        raise AssertionError(f"phase 9 (a) tower pass under auto: launches {counts}")
+    ops.reset_launch_counts()
+    off = tower_grads(torch, enc.params, enc.lora, enc.arch, batch, eot, fused_lora=False, small_attention=False)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"phase 9 (a) kernels off launched {ops.launch_counts()}")
+    err = _hold_grads(torch, "phase 9 (a) B/32 tower pass, auto vs off", auto, off, 1e-4)
+    log(f"phase 9 (a) B/32 towers (8 pairs, fp32): the LoRA gradients of all {len(auto[1])} adapter leaves "
+        f"under the default flags (lora_matmul {counts['lora_matmul']}, attention_small "
+        f"{counts['attention_small']} launches) equal those with the kernels off (max normwise rel err {err:.3e}, "
+        f"loss {auto[0].item():.6f} vs {off[0].item():.6f})")
+
+
+def _train_yaml(path: str, out: str, epochs: int) -> None:
+    """config/lora_config.yaml with phase 9 (b)'s run: batch 6, r=8,
+    alpha=16, dropout 0.1, ``epochs`` epochs, logging every 5 steps, the
+    in-repo CSVs."""
+    import yaml
+
+    with open(os.path.join(REPO, "config/lora_config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["lora"].update(r=8, alpha=16, dropout=0.1)
+    cfg["data"] = {"train_csv": os.path.join(REPO, "data/text/train_fashion.csv"),
+                   "val_csv": os.path.join(REPO, "data/text/val_fashion.csv"), "image_root_dir": REPO}
+    cfg["training"].update(batch_size=6, num_epochs=epochs, logging_steps=5, output_dir=out)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+
+def train_end_to_end(torch, card, enc, texts, index) -> None:
+    """Phase 9 (b): train() at full ViT-B/32 width through cli.py: a
+    2-epoch run whose epoch-2 adapter is served; a 3-epoch run, and a copy
+    of its output without the epoch-3 checkpoint and adapters (an
+    interruption after epoch 2) resumed for the third epoch."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import LoraConfig
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.models.io import load_params
+    from clip_lora_match_tpu_torch.services.seeker import SeekerConfig, SeekerService
+    from clip_lora_match_tpu_torch.train import cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p9_")
+    try:
+        weights = os.path.join(tmp, "base.npz")
+        enc.save(weights)
+        runs = {}
+        for name, epochs in (("two", 2), ("full", 3), ("resumed", 3)):
+            _train_yaml(os.path.join(tmp, f"{name}.yaml"), os.path.join(tmp, name), epochs)
+
+        def run(name):
+            t = time.perf_counter()
+            runs[name] = cli.run(["--config", os.path.join(tmp, f"{name}.yaml"), "--weights", weights])
+            torch.cuda.synchronize()
+            runs[name + "_s"] = time.perf_counter() - t
+
+        ops.reset_launch_counts()
+        run("two")
+        run("full")
+        shutil.copytree(os.path.join(tmp, "full"), os.path.join(tmp, "resumed"))
+        os.remove(os.path.join(tmp, "resumed", "checkpoints", "27.pt"))
+        shutil.rmtree(os.path.join(tmp, "resumed", "epoch_3"))
+        run("resumed")
+        counts = ops.launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"phase 9 (b) train() launched kernels with the training flags: {counts}")
+        two, full, resumed = runs["two"], runs["full"], runs["resumed"]
+        if (two.epochs, full.epochs, resumed.epochs) != (2, 3, 3) or (full.steps, resumed.steps) != (27, 9):
+            raise AssertionError(f"phase 9 (b) epochs {two.epochs}, {full.epochs}, {resumed.epochs}, "
+                                 f"steps {full.steps}, {resumed.steps}")
+        if resumed.train_losses != full.train_losses[-9:] or resumed.val_losses != full.val_losses[-1:]:
+            raise AssertionError(f"phase 9 (b) resumed run's losses {resumed.train_losses} differ from the "
+                                 f"uninterrupted run's {full.train_losses[-9:]}")
+        same_tree(torch, "phase 9 (b) resumed vs uninterrupted final adapter", resumed.final_lora, full.final_lora)
+        if not all(np.isfinite(two.train_losses + two.val_losses + full.train_losses + full.val_losses)):
+            raise AssertionError("phase 9 (b): non-finite losses")
+        log(f"phase 9 (b) train() through cli.py at ViT-B/32 (batch 6, r=8, alpha=16, dropout 0.1, 9 steps an "
+            f"epoch, the in-repo CSVs): launches {json.dumps(counts)} (the trainer's flags: plain products); "
+            f"epoch 3 resumed from epoch 2's checkpoint: its losses and the final adapter bit-equal to the "
+            f"uninterrupted 3-epoch run's; train losses {[round(v, 4) for v in full.train_losses]}, val losses "
+            f"{[round(v, 4) for v in full.val_losses]}; wall {runs['two_s']:.1f} s (2 epochs), "
+            f"{runs['resumed_s']:.1f} s (1 epoch resumed), {runs['full_s']:.1f} s (3 epochs, "
+            f"{27 / runs['full_s']:.2f} steps/s with data, validation and saves) [{card}]")
+
+        # -- the epoch-2 adapter, served ------------------------------------------------
+        lcfg = LoraConfig()
+        native = os.path.join(tmp, "two", "epoch_2")
+        peft = os.path.join(tmp, "peft_epoch_2")
+        os.makedirs(peft)
+        for f in ("adapter_model.safetensors", "adapter_config.json"):
+            shutil.copy(os.path.join(native, f), peft)
+        ref_enc = ClipEncoder(load_params(weights, device="cuda"), arch=enc.arch, config=enc.cfg, device="cuda")
+        ref_enc.attach_lora(two.final_lora, lcfg.scaling)
+        ref = ref_enc.encode_text(texts)
+        for name, d in (("native", native), ("PEFT", peft)):
+            e = ClipEncoder.from_config(None, weights_path=weights, lora_path=d, device="cuda")
+            got = e.encode_text(texts)
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"phase 9 (b) epoch_2 {name} adapter: text embeddings differ from "
+                                     f"TrainResult.final_lora's (max {np.abs(got - ref).max():.3e})")
+            del e
+        rows = [index.append(ref[i], f"trained/{i}", t) for i, t in enumerate(texts)]
+        svc = SeekerService(ref_enc, SeekerConfig(), index=index)
+        for i, t in enumerate(texts):
+            res = svc.search_items(description=t)
+            if len(res) != 5 or res[0].index != rows[i] or not res[0].score >= 0.99:
+                raise AssertionError(f"phase 9 (b) search with the trained adapter, query {i}: "
+                                     f"top {res[0].index} {res[0].score}")
+        log(f"phase 9 (b) the epoch_2 adapter, native and PEFT, loaded by ClipEncoder.from_config: text "
+            f"embeddings bit-equal to TrainResult.final_lora's at epoch 2; {len(texts)} text searches over "
+            f"phase 3's index ({len(index)} rows with the trained encoder's rows) return their own rows first")
+        del ref_enc, svc
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def step_configs(torch, card, enc) -> dict:
+    """Phase 9 (c): the train step at B=128 (uint8 224² pixels, 64-wide
+    token ids, fp32) in four configurations; (d): the chained step. Returns
+    the launches of one (iii) step."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import LoraConfig, TrainingConfig
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+    from clip_lora_match_tpu_torch.models.io import tree_leaves
+    from clip_lora_match_tpu_torch.train.step import (
+        init_train_state, make_chained_train_step, make_optimizer, make_train_step)
+
+    arch, eot = enc.arch, enc.preprocessor.tokenizer.eot_id
+    batch = train_batch(enc, TRAIN_B, 64, SEED + 21)
+    tcfg = TrainingConfig()
+    tx, _ = make_optimizer(tcfg, 1000)
+    off = dict(fused_lora=False, small_attention=False, flash_attention=False)
+    on = dict(fused_lora=True, small_attention=True, flash_attention=False)
+    configs = (
+        ("(i) training flags, dropout 0.1", off, 0.1, False),
+        ("(ii) training flags, dropout 0", off, 0.0, False),
+        ("(iii) fused_lora + small_attention, dropout 0", on, 0.0, False),
+        ("(iv) training flags, dropout 0.1, remat=True", off, 0.1, True),
+    )
+    out = {}
+    for name, flags, rate, remat in configs:
+        lcfg = LoraConfig(dropout=rate)
+        with kernel_flags(**flags):
+            step = make_train_step(enc.params, arch, lcfg, tcfg, tx, eot_id=eot, remat=remat)
+            state = init_train_state(enc.lora, tx, seed=42)
+            for _ in range(2):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            samples, losses = [], []
+            for _ in range(10):
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                samples.append((time.perf_counter() - t) * 1e3)
+                losses.append(m["loss"].item())
+            peak = torch.cuda.max_memory_allocated()
+            ops.reset_launch_counts()
+            step(state, batch)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            rows = device_rows(torch, lambda: step(state, batch))
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"phase 9 (c) {name}: non-finite loss {losses}")
+        ms = statistics.median(samples)
+        busy = sum(r[0] for r in rows)
+        out[name] = dict(ms=ms, busy=busy, peak=peak, counts=counts)
+        log(f"phase 9 (c) B={TRAIN_B} step {name}: median of 10 {ms:.2f} ms (min {min(samples):.2f}); device "
+            f"busy {busy:.2f} ms, idle share {1 - busy / ms:.3f}; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; launches {json.dumps({k: v for k, v in counts.items() if v})}; "
+            f"losses {losses[0]:.5f}..{losses[-1]:.5f} [{card}]")
+        log(f"  by kind (ms, count): {json.dumps(_by_kind(rows))}")
+        for ms_, count, key in sorted(rows, reverse=True)[:6]:
+            log(f"  {ms_:9.3f} ms  x{count:<5d} {key[:100]}")
+        del state, step
+        torch.cuda.empty_cache()
+    layers = arch.vision_layers + arch.text_layers
+    c3 = out[configs[2][0]]["counts"]
+    if c3["lora_matmul"] != 4 * layers or c3["attention_small"] != layers:
+        raise AssertionError(f"phase 9 (c) (iii) launches {c3}")
+    if any(out[configs[i][0]]["counts"][k] for i in (0, 1, 3) for k in ("lora_matmul", "attention_small")):
+        raise AssertionError("phase 9 (c): a step with the training flags launched a kernel")
+    # (iii) against (ii): the loss and every LoRA gradient at B=128
+    kern = tower_grads(torch, enc.params, enc.lora, arch, batch, eot, **on)
+    plain = tower_grads(torch, enc.params, enc.lora, arch, batch, eot, **off)
+    err = _hold_grads(torch, "phase 9 (c) (iii) vs (ii)", kern, plain, 1e-4)
+    log(f"phase 9 (c) (iii) against (ii) at B={TRAIN_B}: loss and all {len(kern[1])} LoRA gradients within "
+        f"max normwise rel err {err:.3e}")
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    # -- (d) the chained step: K=4 against 4 single steps, bit for bit, dropout 0.1
+    K = 4
+    B = TRAIN_B // K
+    lcfg = LoraConfig(dropout=0.1)
+    sub = [{k: v[i * B:(i + 1) * B] for k, v in batch.items()} for i in range(K)]
+    single = make_train_step(enc.params, arch, lcfg, tcfg, tx, eot_id=eot)
+    chained = make_chained_train_step(enc.params, arch, lcfg, tcfg, tx, K, eot_id=eot)
+    s1 = init_train_state(enc.lora, tx, seed=42)
+    singles = []
+    for b in sub:
+        s1, m = single(s1, b)
+        singles.append(m["loss"])
+    s2, m = chained(init_train_state(enc.lora, tx, seed=42), {k: np.stack([b[k] for b in sub]) for k in sub[0]})
+    if not torch.equal(torch.stack(singles), m["losses"]):
+        raise AssertionError(f"phase 9 (d) chained losses {m['losses'].tolist()} != singles "
+                             f"{[v.item() for v in singles]}")
+    for (path, a), (_, b) in zip(tree_leaves(s1.lora), tree_leaves(s2.lora)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 9 (d) chained adapter differs at {path}")
+    log(f"phase 9 (d) make_chained_train_step K={K} at B={B}, dropout 0.1: losses "
+        f"{[round(v, 6) for v in m['losses'].tolist()]} and the adapter bit-equal to {K} single steps")
+    return c3
+
+
+def training_path(torch, card, enc, texts, index, gen) -> tuple[dict, dict]:
+    """Phase 9 over phase 3's encoder and index. Returns the backward rows
+    and the launches of one (iii) step."""
+    t0 = time.perf_counter()
+    rows = grad_checks(torch, card, gen)
+    repaired_fault(torch, enc)
+    log(f"phase 9 (a): {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    train_end_to_end(torch, card, enc, texts, index)
+    log(f"phase 9 (b): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts = step_configs(torch, card, enc)
+    log(f"phase 9 (c), (d): {time.perf_counter() - t:.1f} s")
+    return rows, counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2301,19 +2778,23 @@ def main() -> int:
             files = (loader, *file_corpus(tmp7))
             log(f"phase 7 files: {len(files[1])} renders (224^2, quality 92) and {len(files[2])} "
                 f"photos (1200x1600, quality 90) written in {time.perf_counter() - t:.2f} s")
-        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after is None)
+        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8"))
         for name in OFF_BY_DEFAULT:
             counts[name] = l14[name]
         torch.cuda.empty_cache()
         crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
         if files is not None:
             image_files_path(torch, card, enc, files)
-        if stop_after is None:
+        if stop_after in (None, "8"):
             torch.cuda.empty_cache()
             w8a8_path(torch, card, enc, texts, images, index, lat3)
     finally:
         if tmp7 is not None:
             shutil.rmtree(tmp7, ignore_errors=True)
+    bwd, train_counts = {}, {name: 0 for name in KERNELS}
+    if stop_after is None:
+        torch.cuda.empty_cache()
+        bwd, train_counts = training_path(torch, card, enc, texts, index, gen)
 
     table = []
     for name, (rows, worst) in results.items():
@@ -2328,7 +2809,14 @@ def main() -> int:
             "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
             # phase 6's counted runs: the device-crop seeker and the HTTP text searches
             "launches_phase6": crop[name] + http[name],
+            # phase 9 (c) (iii): one B=128 train step with fused_lora and small_attention on
+            "launches_phase9": train_counts[name],
         })
+        if name in bwd:  # phase 9 (a): the backward (plain fp32 products) at the fp32 image-tower shape
+            b = bwd[name][0]
+            table[-1].update(backward_shape=b["shape"], backward_ms=b["ms"], backward_device_ms=b["device_ms"],
+                             backward_plain_ms=b["plain_ms"], backward_bound_ms=b["bound_ms"],
+                             backward_bound_by=b["bound_by"], backward_max_rel_err=b["max_rel_err"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     log(card)

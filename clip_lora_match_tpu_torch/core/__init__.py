@@ -4,9 +4,11 @@ from clip_lora_match_tpu_torch.core.config import (
     DBConfig,
     LoraConfig,
     PreprocessConfig,
+    TrainingConfig,
     YoloConfig,
     load_clip_config,
     load_db_config,
+    load_lora_config,
     load_yolo_config,
     to_dict,
 )
@@ -18,9 +20,11 @@ __all__ = [
     "DBConfig",
     "LoraConfig",
     "PreprocessConfig",
+    "TrainingConfig",
     "YoloConfig",
     "load_clip_config",
     "load_db_config",
+    "load_lora_config",
     "load_yolo_config",
     "resolve_device",
     "to_dict",

@@ -5,7 +5,9 @@ serving path needs: ``ClipArchConfig`` (with the same presets), ``ClipConfig``,
 ``PreprocessConfig``, ``LoraConfig`` and ``load_clip_config``, parsing the same
 ``config/clip_config.yaml``; ``YoloConfig`` with ``load_yolo_config`` for
 ``config/yolo_config.yaml``; ``DBConfig`` with ``load_db_config`` for
-``config/db_config.yaml``; and ``to_dict``. Unknown keys are ignored.
+``config/db_config.yaml``; ``TrainingConfig`` with ``load_lora_config`` for
+``config/lora_config.yaml`` (its ``model:``, ``lora:``, ``data:`` and
+``training:`` blocks); and ``to_dict``. Unknown keys are ignored.
 """
 
 from __future__ import annotations
@@ -158,6 +160,50 @@ class LoraConfig:
         return self.alpha / self.r
 
 
+@dataclass(frozen=True)
+class TrainingConfig:
+    """Mirrors the ``training:`` and ``data:`` blocks of
+    config/lora_config.yaml, every field of the JAX package's
+    ``TrainingConfig`` with its default (the reference recipe: seed 42,
+    AdamW lr 1e-4, wd 0.01, warmup ratio 0.1, clip 1.0, temperature 0.07).
+
+    ``remat``: False, True (each block checkpointed with
+    ``torch.utils.checkpoint``) or ``"dots"`` (selective checkpointing that
+    saves the matmul outputs). ``text_seq_slice``: text columns that are padding in every row of a
+    batch are dropped down to this width (0: never); exact under the causal
+    mask. ``chain_steps``, ``scan_unroll`` and ``dropout_rng_impl`` are read
+    and kept so that one YAML serves both packages; they have no effect in
+    PyTorch, which runs eagerly (a chain of K steps saves no dispatch, so
+    ``train()`` calls the single step per batch, the trajectory of
+    ``make_chained_train_step``), runs the layers as a Python loop and draws
+    dropout masks from ``torch.Generator``s. ``global_batch_size`` and
+    ``checkpoint_every_steps`` are read and unused, as in the JAX trainer."""
+
+    seed: int = 42
+    batch_size: int = 8
+    num_workers: int = 2
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    num_epochs: int = 1
+    gradient_accumulation_steps: int = 1
+    max_grad_norm: float = 1.0
+    logging_steps: int = 50
+    temperature: float = 0.07
+    warmup_ratio: float = 0.1
+    output_dir: str = "models/saved/clip-lora"
+    train_csv: str = "data/text/train_fashion.csv"
+    val_csv: str = "data/text/val_fashion.csv"
+    image_root_dir: str = "."
+    global_batch_size: Optional[int] = None
+    checkpoint_every_steps: Optional[int] = None
+    resume: bool = True
+    remat: Any = False
+    scan_unroll: Any = True
+    dropout_rng_impl: Optional[str] = None
+    chain_steps: int = 1
+    text_seq_slice: int = 64
+
+
 def _read_yaml(path: str) -> dict:
     with open(path, "r") as f:
         data = yaml.safe_load(f)
@@ -200,6 +246,39 @@ def load_clip_config(path: Optional[str] = None) -> ClipConfig:
         compilation_cache_dir=model.get("compilation_cache_dir"),
         arch=_arch_from_yaml(model),
     )
+
+
+def load_lora_config(path: Optional[str] = None) -> tuple[LoraConfig, TrainingConfig]:
+    """Parse the config/lora_config.yaml shape; returns (lora, training). A
+    missing path gives the defaults. ``model.target_modules`` defaults to
+    q/v only when the file omits it, as in the JAX package."""
+    if path is None or not os.path.exists(path):
+        return LoraConfig(), TrainingConfig()
+    raw = _read_yaml(path)
+    model = raw.get("model", {}) or {}
+    lora = raw.get("lora", {}) or {}
+    data = raw.get("data", {}) or {}
+    tr = raw.get("training", {}) or {}
+    lora_cfg = LoraConfig(
+        r=lora.get("r", 8),
+        alpha=lora.get("alpha", 16),
+        dropout=lora.get("dropout", 0.1),
+        bias=lora.get("bias", "none"),
+        task_type=lora.get("task_type", "FEATURE_EXTRACTION"),
+        target_modules=tuple(model.get("target_modules", ("q_proj", "v_proj"))),
+        base_model_name=model.get("base_model_name", "openai/clip-vit-base-patch32"),
+    )
+    names = {f.name for f in dataclasses.fields(TrainingConfig)}
+    fields = {
+        **tr,
+        # YAML reads 1e-4 without a dot as a string
+        "learning_rate": float(tr.get("learning_rate", 1e-4)),
+        "weight_decay": float(tr.get("weight_decay", 0.01)),
+        "train_csv": data.get("train_csv", "data/text/train_fashion.csv"),
+        "val_csv": data.get("val_csv", "data/text/val_fashion.csv"),
+        "image_root_dir": data.get("image_root_dir", "."),
+    }
+    return lora_cfg, TrainingConfig(**{k: v for k, v in fields.items() if k in names})
 
 
 def _arch_from_yaml(model: dict) -> Optional[ClipArchConfig]:

@@ -126,8 +126,16 @@ def encode_image_features(
     lora: Optional[Params] = None,
     lora_scaling: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
+    remat: bool | str = False,
+    lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    unroll: int | bool = 1,
 ) -> torch.Tensor:
-    """(B, H, W, 3) → (B, projection_dim) un-normalized image features."""
+    """(B, H, W, 3) → (B, projection_dim) un-normalized image features.
+
+    ``remat``, ``lora_dropout`` and ``generator`` go to ``nn.layers.transformer``
+    (dropout only with a generator). ``unroll`` is the JAX package's scan
+    unroll, accepted and without effect: the layers run as a Python loop."""
     p = params["visual"]
     x = _patchify(pixel_values, arch.patch_size)
     x = linear(p["patch_embed"], x, compute_dtype=compute_dtype)
@@ -139,7 +147,8 @@ def encode_image_features(
         p["blocks"], x, arch.vision_heads,
         lora_blocks=None if lora is None else lora["visual"]["blocks"],
         lora_scaling=lora_scaling, eps=arch.layer_norm_eps,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, remat=remat, lora_dropout=lora_dropout,
+        generator=generator,
     )
     pooled = layer_norm(p["ln_post"], x[:, 0], arch.layer_norm_eps)
     return linear(p["proj"], pooled, compute_dtype=compute_dtype)
@@ -164,6 +173,10 @@ def encode_text_features(
     lora: Optional[Params] = None,
     lora_scaling: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
+    remat: bool | str = False,
+    lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    unroll: int | bool = 1,
 ) -> torch.Tensor:
     """(B, S) int ids → (B, projection_dim) un-normalized text features.
 
@@ -171,7 +184,8 @@ def encode_text_features(
     ``ids == eot_id``; argmax of ids when ``eot_id`` is None).
     ``attention_mask`` rows must be suffix-padded; the structural
     description handed to the small attention kernel is causal + per-row key
-    lengths ``mask.sum(-1)``.
+    lengths ``mask.sum(-1)``. ``remat``, ``lora_dropout``, ``generator``
+    and ``unroll`` as in ``encode_image_features``.
     """
     p = params["text"]
     B, S = input_ids.shape
@@ -189,6 +203,7 @@ def encode_text_features(
         lora_blocks=None if lora is None else lora["text"]["blocks"],
         lora_scaling=lora_scaling, eps=arch.layer_norm_eps,
         compute_dtype=compute_dtype, causal=True, key_lengths=key_lengths,
+        remat=remat, lora_dropout=lora_dropout, generator=generator,
     )
     x = layer_norm(p["ln_final"], x, arch.layer_norm_eps)
     if eot_id is None:

@@ -63,13 +63,23 @@ def unflatten(flat: dict) -> Params:
     return tree
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of nested dicts and lists."""
+def tree_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """[("a/b/c", leaf)] of nested dicts in sorted key order (the JAX
+    package's leaf order), the leaves as they are; ``unflatten(dict(...))``
+    rebuilds the tree."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return [kv for k in sorted(tree) for kv in tree_leaves(tree[k], f"{prefix}{k}{_SEP}")]
+    return [(prefix.rstrip(_SEP), tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of nested dicts and lists; with more trees
+    of the same structure, ``fn`` takes their leaves at the same place."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def to_device(tree, device, dtype: torch.dtype | None = None):

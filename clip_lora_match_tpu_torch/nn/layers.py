@@ -30,11 +30,28 @@ as given, ``attention`` its compute-dtype input once for q/k/v together, and
 the float LoRA deltas and biases are added after the dequantized product, as
 in the JAX package. Under int8 neither ``lora_matmul`` nor ``mlp_fused``
 runs; the attention core dispatches as on the float path.
+
+Training (the JAX package's training branches): LoRA dropout on the adapter
+input of every adapted projection, its masks drawn from a
+``torch.Generator`` (``_keep``); an active dropout bypasses
+``lora_matmul``, as in the JAX package. ``transformer`` draws one seed a
+layer from its generator and each block draws its masks from a device
+generator seeded with it, in a fixed order, so a checkpointed block redraws
+the same masks when it is recomputed. Two more switches, both ``False`` by
+default as in the JAX package: ``fused_lora_dropout`` gives q, k and v one
+shared dropout mask in an autograd Function that redraws the mask in its
+backward from the generator state it saved (``_QkvLoraShared``), and
+``fast_ln`` runs LayerNorm as an autograd Function that saves only its input
+and scale (``_FastLayerNorm``). ``transformer(remat=...)``: False, True
+(each block under ``torch.utils.checkpoint``) or ``"dots"`` (selective
+checkpointing that saves the products without batch dimensions, the linear
+layers' ``mm``s, and recomputes the rest).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Optional
 
 import torch
@@ -47,6 +64,8 @@ _KERNEL_FLAGS = {
     "flash_attention": False,
     "small_attention": "auto",
     "fused_mlp": False,
+    "fused_lora_dropout": False,
+    "fast_ln": False,
 }
 
 SMALL_ATTN_MAX_SEQ = 64
@@ -64,18 +83,26 @@ def set_kernel_flags(
     flash_attention: bool | str | None = None,
     small_attention: bool | str | None = None,
     fused_mlp: bool | str | None = None,
+    fused_lora_dropout: bool | None = None,
+    fast_ln: bool | None = None,
 ) -> dict:
-    """Set the process-wide kernel dispatch; returns the previous flags."""
+    """Set the process-wide kernel dispatch; returns the previous flags.
+    ``fused_lora_dropout`` and ``fast_ln`` take True or False."""
     prev = dict(_KERNEL_FLAGS)
-    for val in (fused_lora, flash_attention, small_attention, fused_mlp):
-        if val not in (None, True, False, "auto"):
-            raise ValueError(f"kernel flag must be True, False or 'auto', got {val!r}")
-    for name, val in (
+    kernels = (
         ("fused_lora", fused_lora),
         ("flash_attention", flash_attention),
         ("small_attention", small_attention),
         ("fused_mlp", fused_mlp),
-    ):
+    )
+    switches = (("fused_lora_dropout", fused_lora_dropout), ("fast_ln", fast_ln))
+    for name, val in kernels:
+        if val not in (None, True, False, "auto"):
+            raise ValueError(f"kernel flag {name} must be True, False or 'auto', got {val!r}")
+    for name, val in switches:
+        if val not in (None, True, False):
+            raise ValueError(f"flag {name} must be True or False, got {val!r}")
+    for name, val in kernels + switches:
         if val is not None:
             _KERNEL_FLAGS[name] = val
     return prev
@@ -126,19 +153,79 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm computed in fp32, cast back to the input dtype."""
+    """LayerNorm computed in fp32, cast back to the input dtype. Under
+    ``fast_ln`` and autograd it runs as ``_FastLayerNorm``."""
+    if _KERNEL_FLAGS["fast_ln"] and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, p["scale"], p["bias"])
+    ):
+        return _FastLayerNorm.apply(x, p["scale"], p["bias"], eps)
+    return _ln_plain(x, p["scale"], p["bias"], eps)
+
+
+def _ln_plain(x, scale, bias, eps):
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
     var = (x32 - mu).square().mean(-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
+    y = y * scale.float() + bias.float()
     return y.to(x.dtype)
 
 
-def _lora_delta(x: torch.Tensor, lora: Params, scaling: float) -> torch.Tensor:
-    """scaling · round(x @ a) @ b in fp32 (the adapter branch of ``linear``)."""
+class _FastLayerNorm(torch.autograd.Function):
+    """LayerNorm whose only saved tensors are its input and scale: mean,
+    rstd and x-hat are recomputed in the backward, the JAX package's
+    ``_ln_fast_bwd`` (``nn/layers.py:150-183``). The scale and bias
+    gradients are computed only where they are asked for."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _ln_plain(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        var = (x32 - mu).square().mean(-1, keepdim=True)
+        rstd = torch.rsqrt(var + ctx.eps)
+        xhat = (x32 - mu) * rstd
+        dy32 = dy.float()
+        g = dy32 * scale.float()
+        dx = rstd * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True))
+        red = tuple(range(x.dim() - 1))
+        dscale = (dy32 * xhat).sum(red).to(scale.dtype) if ctx.needs_input_grad[1] else None
+        dbias = dy32.sum(red).to(scale.dtype) if ctx.needs_input_grad[2] else None
+        return dx.to(x.dtype), dscale, dbias, None
+
+
+def _keep(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """Inverted dropout's keep mask at ``rate``: a uniform draw from ``gen``
+    below 1 - rate, one per element of ``x``."""
+    return torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+
+
+def _masked(t: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """The kept elements of ``t`` scaled by 1 / (1 - rate), the others 0, in
+    t's dtype (the JAX package's ``jnp.where(keep, x / (1 - rate), 0)``)."""
+    return torch.where(keep, t / (1.0 - rate), torch.zeros((), dtype=t.dtype, device=t.device)).to(t.dtype)
+
+
+def _dropping(lora_dropout: float, generator: Optional[torch.Generator]) -> bool:
+    return lora_dropout > 0.0 and generator is not None
+
+
+def _lora_delta(
+    x: torch.Tensor, lora: Params, scaling: float, lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """scaling · round(drop(x) @ a) @ b in fp32 (the adapter branch of
+    ``linear``; dropout only with a generator and a positive rate)."""
     a = lora["a"].to(x.dtype)
     b = lora["b"].to(x.dtype)
+    if _dropping(lora_dropout, generator):
+        x = _masked(x, _keep(x, lora_dropout, generator), lora_dropout)
     xa = (x.float() @ a.float()).to(x.dtype)
     return scaling * (xa.float() @ b.float())
 
@@ -149,15 +236,19 @@ def linear(
     lora: Optional[Params] = None,
     lora_scaling: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
+    lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """y = x @ kernel + bias [+ lora_scaling · (x @ a) @ b], in x's dtype."""
+    """y = x @ kernel + bias [+ lora_scaling · (drop(x) @ a) @ b], in x's
+    dtype. Dropout (``lora_dropout`` > 0 with a ``generator``) applies to
+    the adapter's input only, and takes the plain path."""
     out_dtype = x.dtype
     if "kernel_q" in p:
         from clip_lora_match_tpu_torch.quant.int8 import int8_matmul
 
         y = int8_matmul(x, p["kernel_q"], p["w_scale"])
         if lora is not None:
-            y = y + _lora_delta(x, lora, lora_scaling)
+            y = y + _lora_delta(x, lora, lora_scaling, lora_dropout, generator)
         if p.get("bias") is not None:
             y = y + p["bias"].to(y.dtype)
         return y.to(out_dtype)
@@ -166,7 +257,7 @@ def linear(
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
     bias = p.get("bias")
-    if lora is not None and _kernel_on("fused_lora", x):
+    if lora is not None and _kernel_on("fused_lora", x) and not _dropping(lora_dropout, generator):
         from clip_lora_match_tpu_torch.ops.lora_matmul import lora_matmul
 
         shape = x.shape
@@ -182,7 +273,7 @@ def linear(
     # once: the JAX package's dot with preferred_element_type=bf16
     y = torch.matmul(x, w).to(acc_dtype)
     if lora is not None:
-        y = y + _lora_delta(x, lora, lora_scaling).to(acc_dtype)
+        y = y + _lora_delta(x, lora, lora_scaling, lora_dropout, generator).to(acc_dtype)
     if bias is not None:
         y = y + bias.to(acc_dtype)
     return y.to(out_dtype)
@@ -250,6 +341,45 @@ def group_int8_qkv(p: Params) -> None:
         p[n] = {**p[n], "kernel_q": wq[:, i * D:(i + 1) * D]}
 
 
+class _QkvLoraShared(torch.autograd.Function):
+    """The three q/k/v LoRA deltas under ONE shared dropout mask (the JAX
+    package's ``_qkv_lora_shared``, ``nn/layers.py:285-357``): x (B, S, D),
+    a_cat [Aq | Ak | Av] (D, 3r), b_stk (3, r, D) → (B, S, 3, D) deltas in
+    x's dtype. The forward keeps the generator's state from before its draw;
+    the backward redraws the mask from that state (no mask or masked x is
+    saved) and re-reads x."""
+
+    @staticmethod
+    def forward(ctx, x, a_cat, b_stk, generator, scaling, rate):
+        ctx.state = generator.get_state()
+        ctx.scaling, ctx.rate = scaling, rate
+        ctx.save_for_backward(x, a_cat, b_stk)
+        B, S, _ = x.shape
+        xl = _masked(x, _keep(x, rate, generator), rate)
+        d = (xl.float() @ a_cat.float()).to(x.dtype).reshape(B, S, 3, -1)
+        out = scaling * torch.einsum("bstr,trd->bstd", d.float(), b_stk.float())
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a_cat, b_stk = ctx.saved_tensors
+        B, S, D = x.shape
+        r = b_stk.shape[1]
+        gen = torch.Generator(device=x.device)
+        gen.set_state(ctx.state)
+        keep = _keep(x, ctx.rate, gen)
+        xl = _masked(x, keep, ctx.rate)
+        g32 = g.to(x.dtype).float()
+        d = (xl.float() @ a_cat.float()).to(x.dtype).reshape(B, S, 3, r)
+        db = ctx.scaling * torch.einsum("bstr,bstd->trd", d.float(), g32)
+        gd = (ctx.scaling * torch.einsum("bstd,trd->bstr", g32, b_stk.float())).to(x.dtype)
+        gd = gd.reshape(B, S, 3 * r).float()
+        da = torch.einsum("bsd,bsk->dk", xl.float(), gd)
+        dxl = (gd @ a_cat.float().t()).to(x.dtype)
+        dx = _masked(dxl, keep, ctx.rate)
+        return dx, da.to(a_cat.dtype), db.to(b_stk.dtype), None, None, None
+
+
 def attention(
     p: Params,
     x: torch.Tensor,
@@ -260,6 +390,8 @@ def attention(
     compute_dtype: Optional[torch.dtype] = None,
     causal: bool = False,
     key_lengths: Optional[torch.Tensor] = None,
+    lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Multi-head self-attention with an optional additive mask.
 
@@ -271,15 +403,23 @@ def attention(
     q/k/v run as one ``lora_matmul`` on the grouped operands
     ``lora["qkv"]`` (``group_qkv``; the encoder's serving copy builds them)
     where present, else each projection runs ``lora_matmul``.
+
+    LoRA dropout (``lora_dropout`` > 0 with a ``generator``) takes the
+    plain branch: each adapter's input gets its own mask, drawn in the order
+    q, k, v, out_proj, or q, k and v share one (``fused_lora_dropout``, all
+    three adapted with one rank).
     """
     B, S, D = x.shape
     H = num_heads
     hd = D // H
-    kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype)
+    kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype,
+              lora_dropout=lora_dropout, generator=generator)
     xc = x if compute_dtype is None else x.to(compute_dtype)
     quantized = "kernel_q" in p["q_proj"]
+    dropping = lora is not None and _dropping(lora_dropout, generator)
+    kernel_lora = not quantized and not dropping and _kernel_on("fused_lora", x)
     group = None if quantized else _lora_get(lora, "qkv")
-    if group is not None and _kernel_on("fused_lora", x):
+    if group is not None and kernel_lora:
         from clip_lora_match_tpu_torch.ops.lora_matmul import lora_matmul
 
         qkv = lora_matmul(
@@ -289,7 +429,7 @@ def attention(
         if group["bias"] is not None:
             qkv = qkv + group["bias"].to(qkv.dtype)
         q, k, v = qkv.to(x.dtype).unbind(0)
-    elif lora is not None and not quantized and _kernel_on("fused_lora", x):
+    elif lora is not None and kernel_lora:
         # x is cast once for the three projections
         q, k, v = (linear(p[n], xc, _lora_get(lora, n), **kw).to(x.dtype) for n in QKV)
     else:
@@ -310,12 +450,24 @@ def attention(
                 b if b is not None else torch.zeros(D, device=x.device) for b in biases
             ]
             qkv = qkv + torch.cat(parts).to(qkv.dtype)
-        q, k, v = qkv.split(D, dim=-1)
+        adapters = [_lora_get(lora, n) for n in QKV]
+        shared = (
+            dropping and _KERNEL_FLAGS["fused_lora_dropout"]
+            and all(lp is not None for lp in adapters)
+            and len({tuple(lp["a"].shape) for lp in adapters}) == 1
+        )
+        if shared:
+            a_cat = torch.cat([lp["a"] for lp in adapters], dim=1).to(xc.dtype)
+            b_stk = torch.stack([lp["b"] for lp in adapters]).to(xc.dtype)
+            deltas = _QkvLoraShared.apply(
+                xc, a_cat, b_stk, generator, float(lora_scaling), float(lora_dropout)
+            )
+            qkv = qkv + deltas.reshape(B, S, 3 * D).to(qkv.dtype)
+            adapters = [None, None, None]
         out = []
-        for name, t in zip(QKV, (q, k, v)):
-            lp = _lora_get(lora, name)
+        for lp, t in zip(adapters, qkv.split(D, dim=-1)):
             if lp is not None:
-                t = t + _lora_delta(xc, lp, lora_scaling).to(qkv.dtype)
+                t = t + _lora_delta(xc, lp, lora_scaling, lora_dropout, generator).to(qkv.dtype)
             out.append(t.to(x.dtype))
         q, k, v = out
 
@@ -351,6 +503,8 @@ def mlp(
     lora: Optional[Params] = None,
     lora_scaling: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
+    lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     # fc1 -> quick-gelu -> fc2 in one kernel when neither matrix carries an
     # adapter and both have plain weights and biases (the kernel's signature;
@@ -371,7 +525,8 @@ def mlp(
         w1, w2 = p["fc1"]["kernel"].to(xc.dtype), p["fc2"]["kernel"].to(xc.dtype)
         y = mlp_fused(xc.reshape(-1, shape[-1]), w1, p["fc1"]["bias"], w2, p["fc2"]["bias"])
         return y.reshape(*shape[:-1], w2.shape[-1]).to(x.dtype)
-    kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype)
+    kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype,
+              lora_dropout=lora_dropout, generator=generator)
     h = quick_gelu(linear(p["fc1"], x, _lora_get(lora, "fc1"), **kw))
     return linear(p["fc2"], h, _lora_get(lora, "fc2"), **kw)
 
@@ -387,16 +542,22 @@ def transformer_block(
     compute_dtype: Optional[torch.dtype] = None,
     causal: bool = False,
     key_lengths: Optional[torch.Tensor] = None,
+    lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Pre-LN residual block: LN → attn → +res; LN → MLP → +res."""
+    """Pre-LN residual block: LN → attn → +res; LN → MLP → +res. The
+    attention's dropout masks are drawn from ``generator`` before the
+    MLP's."""
     x = x + attention(
         p["attn"], layer_norm(p["ln_1"], x, eps), num_heads, mask=mask,
         lora=_lora_get(lora, "attn"), lora_scaling=lora_scaling,
         compute_dtype=compute_dtype, causal=causal, key_lengths=key_lengths,
+        lora_dropout=lora_dropout, generator=generator,
     )
     x = x + mlp(
         p["mlp"], layer_norm(p["ln_2"], x, eps), lora=_lora_get(lora, "mlp"),
         lora_scaling=lora_scaling, compute_dtype=compute_dtype,
+        lora_dropout=lora_dropout, generator=generator,
     )
     return x
 
@@ -425,6 +586,32 @@ def unstack_blocks(blocks) -> list[Params]:
     return [take(blocks, i) for i in range(leaf0(blocks).shape[0])]
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's "dots": keep the outputs of the products
+    without batch dimensions (the linear layers' ``mm``/``addmm``; the JAX
+    package's ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_block(block_fn, x, remat):
+    if not remat:
+        return block_fn(x)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    elif remat is not True:
+        raise ValueError(f"remat must be False, True or 'dots', got {remat!r}")
+    # the dropout masks come from generators the block seeds itself, not from
+    # the global RNG, so there is no RNG state to stash
+    return checkpoint(block_fn, x, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 def transformer(
     blocks,
     x: torch.Tensor,
@@ -436,16 +623,34 @@ def transformer(
     compute_dtype: Optional[torch.dtype] = None,
     causal: bool = False,
     key_lengths: Optional[torch.Tensor] = None,
+    remat: bool | str = False,
+    lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Run a layer stack: a Python loop over the leading layer axis.
-    ``blocks``/``lora_blocks`` are stacked trees or per-layer lists."""
+    ``blocks``/``lora_blocks`` are stacked trees or per-layer lists.
+
+    With LoRA dropout (``lora_dropout`` > 0, a ``generator`` and adapters)
+    one seed a layer is drawn from ``generator`` first; each block seeds a
+    generator on x's device with its own and draws its masks from it, so a
+    block recomputed under ``remat`` draws the same ones. ``remat``: False
+    keeps every activation for the backward; True checkpoints each block;
+    ``"dots"`` checkpoints each block but keeps its linear products."""
     layers = unstack_blocks(blocks)
     lora_layers = unstack_blocks(lora_blocks) if lora_blocks is not None else None
+    seeds = [None] * len(layers)
+    if lora_layers is not None and _dropping(lora_dropout, generator):
+        seeds = torch.randint(
+            0, 2 ** 62, (len(layers),), generator=generator, device=generator.device
+        ).tolist()
     for i, blk in enumerate(layers):
-        x = transformer_block(
-            blk, x, num_heads, mask=mask,
-            lora=None if lora_layers is None else lora_layers[i],
-            lora_scaling=lora_scaling, eps=eps, compute_dtype=compute_dtype,
-            causal=causal, key_lengths=key_lengths,
-        )
+        def block_fn(h, blk=blk, lb=None if lora_layers is None else lora_layers[i], seed=seeds[i]):
+            gen = None if seed is None else torch.Generator(device=h.device).manual_seed(seed)
+            return transformer_block(
+                blk, h, num_heads, mask=mask, lora=lb, lora_scaling=lora_scaling, eps=eps,
+                compute_dtype=compute_dtype, causal=causal, key_lengths=key_lengths,
+                lora_dropout=lora_dropout, generator=gen,
+            )
+
+        x = _run_block(block_fn, x, remat)
     return x

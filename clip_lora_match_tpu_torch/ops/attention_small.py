@@ -7,6 +7,12 @@ max-free form ``exp(min(s, 80))`` normalized after P·V by
 fully masked row. Mask modes: none; structural (``causal`` and/or ``lengths``
 (B,), rebuilt inside the kernel); or an additive ``mask`` broadcastable to
 (B, 1, S, S). The kernel is ``csrc/attention_small.cu``.
+
+The wrapper is differentiable in q, k and v: under autograd it runs as
+``_AttentionSmall``, whose backward is the JAX package's ``custom_vjp``
+backward (``ops/attention_small.py:358-367``): autograd through
+``attention_reference`` (exact softmax) with the structural mask written
+out as an additive one. The mask and the lengths take no gradient.
 """
 
 from __future__ import annotations
@@ -119,6 +125,50 @@ def _launch(q, k, v, mask, scale, causal, lengths) -> torch.Tensor:
     return out
 
 
+def attention_reference(q, k, v, mask, scale: float) -> torch.Tensor:
+    """The JAX package's ``_reference``: q scaled in its own dtype, fp32
+    scores plus the additive mask, exact fp32 softmax rounded to q's dtype,
+    P·V accumulated in fp32 and cast to q's dtype."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), k.float())
+    if mask is not None:
+        scores = scores + mask.float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
+
+
+def attention_small_backward(q, k, v, g, mask, scale: float, causal: bool, lengths):
+    """(dq, dk, dv) for the cotangent ``g``: the vjp of
+    ``attention_reference`` under the additive form of the mask."""
+    full = mask if mask is not None else struct_mask(causal, lengths, q.shape[1], q.device)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_reference(*leaves, full, scale)
+        return torch.autograd.grad(out, leaves, g.to(q.dtype))
+
+
+class _AttentionSmall(torch.autograd.Function):
+    """The kernel (CUDA) or its plain version (CPU) forward; the JAX
+    package's backward, recomputed from q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, causal, lengths):
+        ctx.save_for_backward(q, k, v, mask, lengths)
+        ctx.scale, ctx.causal = scale, causal
+        return _forward(q, k, v, mask, scale, causal, lengths)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, lengths = ctx.saved_tensors
+        dq, dk, dv = attention_small_backward(q, k, v, g, mask, ctx.scale, ctx.causal, lengths)
+        return dq, dk, dv, None, None, None, None
+
+
+def _forward(q, k, v, mask, scale: float, causal: bool, lengths) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_small_plain(q, k, v, mask, scale, causal, lengths)
+    return _launch(q, k, v, mask, scale, causal, lengths)
+
+
 def attention_small(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -129,14 +179,15 @@ def attention_small(
     lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, S, H, hd) context. CUDA tensors launch the kernel; CPU tensors run
-    ``attention_small_plain``."""
+    ``attention_small_plain``. Differentiable in q, k and v."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if mask is not None and (causal or lengths is not None):
         raise ValueError("pass EITHER an additive mask OR causal/lengths, not both")
-    if q.device.type == "cpu":
-        return attention_small_plain(q, k, v, mask, scale, causal, lengths)
-    return _launch(q, k, v, mask, float(scale), causal, lengths)
+    scale = float(scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _AttentionSmall.apply(q, k, v, mask, scale, bool(causal), lengths)
+    return _forward(q, k, v, mask, scale, causal, lengths)
 
 
 attention_small.launches = 0

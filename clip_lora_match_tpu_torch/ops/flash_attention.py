@@ -6,6 +6,10 @@ kernel. All arithmetic is at fp32 accuracy whatever the input dtype (the
 kernel runs both products on the tensor cores as 3xTF32; P is never rounded),
 with an optional additive fp32 mask broadcastable to (B, 1, S, S); the output
 has q's dtype. The kernel is ``csrc/flash_attention.cu``.
+
+It has no backward pass, as the JAX package's kernel has none: with grad
+mode on and an input that requires grad, the wrapper raises instead of
+returning a result cut off from the graph.
 """
 
 from __future__ import annotations
@@ -95,11 +99,18 @@ def flash_attention(
 ) -> torch.Tensor:
     """(B, S, H, d) context. CUDA tensors launch the kernel; CPU tensors run
     ``flash_attention_plain``. Raises ``ValueError`` for a head_dim other
-    than 64."""
+    than 64, and ``RuntimeError`` under autograd."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q must be (B, S, H, d), got {tuple(q.shape)}")
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim must be {HEAD_DIM}, got {q.shape[-1]}")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, mask)
+    ):
+        raise RuntimeError(
+            "flash_attention has no backward pass: call it under torch.no_grad(), or "
+            "differentiate with set_kernel_flags(flash_attention=False)"
+        )
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if q.device.type == "cpu":

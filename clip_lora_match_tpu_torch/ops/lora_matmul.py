@@ -9,6 +9,12 @@ attention layer run as one launch (``nn.layers.group_qkv``). The kernel is
 ``csrc/lora_matmul.cu``; it reads A through its transpose A^T (r, K), so an
 A that is the transposed view of a contiguous (r, K) tensor (the serving
 copy's layout) is passed without a copy.
+
+The wrapper is differentiable: under autograd it runs as ``_LoraMatmul``,
+whose backward is the JAX package's ``custom_vjp`` backward
+(``ops/lora_matmul.py:125-143``) as plain products with fp32 accumulation:
+dx, dA and dB always, dW only where W requires grad (a frozen base takes
+none). There is no backward kernel: the JAX package's backward is plain XLA.
 """
 
 from __future__ import annotations
@@ -119,14 +125,65 @@ def _run(x, w, at, b, scaling: float, groups: int, p: Plan) -> torch.Tensor:
     return y[0] if groups == 1 else y
 
 
-def lora_matmul(x, w, a, b, scaling: float = 1.0, groups: int = 1) -> torch.Tensor:
-    """(M, N) in x's dtype, or (groups, M, N / groups). CUDA tensors launch
-    the kernel; CPU tensors run ``lora_matmul_plain``."""
-    if x.dim() != 2:
-        raise ValueError(f"lora_matmul: x must be (M, K), got {tuple(x.shape)}")
+def lora_matmul_backward(x, w, a, b, g, scaling: float, groups: int = 1, need=(True,) * 4):
+    """(dx, dW, dA, dB) for the cotangent ``g`` of ``lora_matmul``'s output:
+    the JAX package's backward in plain PyTorch, every product in fp32, the
+    rank-r partials rounded to x's dtype as there; a gradient ``need`` leaves
+    out is None. Under ``groups`` the (G, M, N / G) cotangent is laid back
+    out as (M, N): with blockdiag(B) the A and B blocks of each group get
+    what that group's own launch would, and the zero blocks' gradient reaches
+    no adapter."""
+    M, K = x.shape
+    N = w.shape[1]
+    g32 = (g.transpose(0, 1).reshape(M, N) if groups > 1 else g).float()
+    x32 = x.float()
+    gb = (g32 @ b.float().t()).to(x.dtype)  # (M, r)
+    dx = dw = da = db = None
+    if need[0]:
+        dx = (g32 @ w.float().t() + scaling * (gb.float() @ a.float().t())).to(x.dtype)
+    if need[1]:
+        dw = (x32.t() @ g32).to(w.dtype)
+    if need[2]:
+        da = (scaling * (x32.t() @ gb.float())).to(a.dtype)
+    if need[3]:
+        xa = (x32 @ a.float()).to(x.dtype)  # (M, r)
+        db = (scaling * (xa.float().t() @ g32)).to(b.dtype)
+    return dx, dw, da, db
+
+
+class _LoraMatmul(torch.autograd.Function):
+    """The kernel (CUDA) or its plain version (CPU) forward; the JAX
+    package's backward, recomputed from the inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, scaling, groups):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.scaling, ctx.groups = scaling, groups
+        return _forward(x, w, a, b, scaling, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b = ctx.saved_tensors
+        grads = lora_matmul_backward(x, w, a, b, g, ctx.scaling, ctx.groups, ctx.needs_input_grad[:4])
+        return (*grads, None, None)
+
+
+def _forward(x, w, a, b, scaling: float, groups: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return lora_matmul_plain(x, w, a, b, scaling, groups)
-    return _launch(x, w, a, b, float(scaling), int(groups))
+    return _launch(x, w, a, b, scaling, groups)
+
+
+def lora_matmul(x, w, a, b, scaling: float = 1.0, groups: int = 1) -> torch.Tensor:
+    """(M, N) in x's dtype, or (groups, M, N / groups). CUDA tensors launch
+    the kernel; CPU tensors run ``lora_matmul_plain``. Differentiable in x,
+    W, A and B."""
+    if x.dim() != 2:
+        raise ValueError(f"lora_matmul: x must be (M, K), got {tuple(x.shape)}")
+    scaling, groups = float(scaling), int(groups)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, a, b)):
+        return _LoraMatmul.apply(x, w, a, b, scaling, groups)
+    return _forward(x, w, a, b, scaling, groups)
 
 
 lora_matmul.launches = 0

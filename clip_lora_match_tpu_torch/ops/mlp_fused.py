@@ -1,12 +1,18 @@
 """Fused transformer MLP ``y = quick_gelu(x @ W1 + b1) @ W2 + b2``: kernel,
 plain version, wrapper.
 
-Port of ``clip_lora_match_tpu/ops/mlp_fused.py`` (forward only; its
-``custom_vjp`` backward comes with training). x (M, K), W1 (K, H), W2 (H, N)
+Port of ``clip_lora_match_tpu/ops/mlp_fused.py``. x (M, K), W1 (K, H), W2 (H, N)
 of x's dtype; b1 (H,), b2 (N,) are applied in fp32; both products accumulate
 in fp32, bias and quick-gelu run in fp32 and the hidden is rounded to x's
 dtype before fc2; the output has x's dtype. The kernel is
 ``csrc/mlp_fused.cu``; the (M, H) hidden never reaches device memory.
+
+The wrapper is differentiable: under autograd it runs as ``_MlpFused``,
+whose backward is the JAX package's ``custom_vjp`` backward
+(``ops/mlp_fused.py:163-181``) in plain fp32 products: the hidden is
+recomputed from x, quick-gelu's derivative taken as written there, and the
+weight and bias gradients computed only where they are asked for (a frozen
+base takes none).
 """
 
 from __future__ import annotations
@@ -121,14 +127,59 @@ def _run(x, w1, b1, w2, b2, p: Plan) -> torch.Tensor:
     return y
 
 
-def mlp_fused(x, w1, b1, w2, b2) -> torch.Tensor:
-    """(M, N) in x's dtype. CUDA tensors launch the kernel; CPU tensors run
-    ``mlp_fused_plain``."""
-    if x.dim() != 2:
-        raise ValueError(f"mlp_fused: x must be (M, K), got {tuple(x.shape)}")
+def mlp_fused_backward(x, w1, b1, w2, b2, g, need=(True,) * 5):
+    """(dx, dW1, db1, dW2, db2) for the cotangent ``g``: the JAX package's
+    backward in plain PyTorch, every product in fp32, the hidden and its
+    gradient rounded to x's dtype as there; a gradient ``need`` leaves out is
+    None."""
+    x32, g32 = x.float(), g.float()
+    hpre = x32 @ w1.float() + b1.float()
+    sig = torch.sigmoid(1.702 * hpre)
+    dgelu = sig * (1.0 + 1.702 * hpre * (1.0 - sig))
+    dh = ((g32 @ w2.float().t()) * dgelu).to(x.dtype)
+    dx = dw1 = db1 = dw2 = db2 = None
+    if need[0]:
+        dx = (dh.float() @ w1.float().t()).to(x.dtype)
+    if need[1]:
+        dw1 = (x32.t() @ dh.float()).to(w1.dtype)
+    if need[2]:
+        db1 = dh.float().sum(0).to(b1.dtype)
+    if need[3]:
+        h = (hpre * sig).to(x.dtype)
+        dw2 = (h.float().t() @ g32).to(w2.dtype)
+    if need[4]:
+        db2 = g32.sum(0).to(b2.dtype)
+    return dx, dw1, db1, dw2, db2
+
+
+class _MlpFused(torch.autograd.Function):
+    """The kernel (CUDA) or its plain version (CPU) forward; the JAX
+    package's backward, the hidden recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _forward(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mlp_fused_backward(*ctx.saved_tensors, g, ctx.needs_input_grad)
+
+
+def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
     if x.device.type == "cpu":
         return mlp_fused_plain(x, w1, b1, w2, b2)
     return _launch(x, w1, b1, w2, b2)
+
+
+def mlp_fused(x, w1, b1, w2, b2) -> torch.Tensor:
+    """(M, N) in x's dtype. CUDA tensors launch the kernel; CPU tensors run
+    ``mlp_fused_plain``. Differentiable in every input."""
+    if x.dim() != 2:
+        raise ValueError(f"mlp_fused: x must be (M, K), got {tuple(x.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _MlpFused.apply(x, w1, b1, w2, b2)
+    return _forward(x, w1, b1, w2, b2)
 
 
 mlp_fused.launches = 0

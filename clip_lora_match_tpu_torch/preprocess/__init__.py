@@ -1,3 +1,4 @@
+from clip_lora_match_tpu_torch.preprocess.augment import ImageAugmenter, default_augmenter
 from clip_lora_match_tpu_torch.preprocess.image import (
     preprocess_image,
     preprocess_image_batch,
@@ -5,4 +6,11 @@ from clip_lora_match_tpu_torch.preprocess.image import (
 )
 from clip_lora_match_tpu_torch.preprocess.pipeline import ClipPreprocessor
 
-__all__ = ["preprocess_image", "preprocess_image_batch", "preprocess_pil", "ClipPreprocessor"]
+__all__ = [
+    "ClipPreprocessor",
+    "ImageAugmenter",
+    "default_augmenter",
+    "preprocess_image",
+    "preprocess_image_batch",
+    "preprocess_pil",
+]

@@ -1221,3 +1221,191 @@ def test_quantized_encoder_launches_no_lora_or_mlp_kernel(gen):
         ref = encs["none"].encode_image_batch(pix)
     cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
     assert cos.min() >= 0.995
+
+
+# -- the kernels' backward passes (training) ------------------------------------
+
+
+def _normrel(got, ref):
+    return ((got.double() - ref.double()).norm() / ref.double().norm().clamp_min(1e-30)).item()
+
+
+def _grads(fn, inputs, cot, need):
+    ts = [t.detach().clone().requires_grad_(n) for t, n in zip(inputs, need)]
+    fn(*ts).backward(cot)
+    return [t.grad for t, n in zip(ts, need) if n]
+
+
+# fp32: the same plain products in another order; bf16: the rank-r partials
+# and the hidden rounded at other places (one bf16 step)
+_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,r", [(6400, 768, 768, 8), (8192, 512, 512, 8), (77, 768, 768, 24)])
+def test_lora_matmul_grads_on_cuda(gen, M, K, N, r, dtype):
+    ins = (_rand(gen, M, K, dtype=dtype), _rand(gen, K, N, dtype=dtype, scale=K ** -0.5),
+           _rand(gen, K, r, dtype=dtype, scale=0.05), _rand(gen, r, N, dtype=dtype, scale=0.05))
+    cot = _rand(gen, M, N, dtype=dtype)
+    need = (True, False, True, True)  # the frozen base takes no gradient
+    before = L.lora_matmul.launches
+    got = _grads(lambda *t: L.lora_matmul(*t, scaling=2.0), ins, cot, need)
+    assert L.lora_matmul.launches == before + 1
+    ref = _grads(lambda *t: L.lora_matmul_plain(*t, scaling=2.0), ins, cot, need)
+    for name, g, rf in zip(("dx", "dA", "dB"), got, ref):
+        assert g.dtype == dtype and _normrel(g, rf) <= _GRAD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_lora_launch_grads_on_cuda(gen, dtype):
+    from clip_lora_match_tpu_torch.nn.layers import QKV, group_qkv
+
+    D, r, M = 768, 8, 6400
+    p = {n: {"kernel": _rand(gen, D, D, dtype=dtype, scale=D ** -0.5), "bias": None} for n in QKV}
+    leaves = {n: {"a": _rand(gen, D, r, dtype=dtype, scale=0.05).requires_grad_(True),
+                  "b": _rand(gen, r, D, dtype=dtype, scale=0.05).requires_grad_(True)} for n in QKV}
+    x, cot = _rand(gen, M, D, dtype=dtype), _rand(gen, 3, M, D, dtype=dtype)
+    g = group_qkv(p, leaves)
+    before = L.lora_matmul.launches
+    (L.lora_matmul(x, g["kernel"], g["a"], g["b"], scaling=2.0, groups=3).float() * cot.float()).sum().backward()
+    assert L.lora_matmul.launches == before + 1
+    for i, n in enumerate(QKV):
+        ref = _grads(lambda *t: L.lora_matmul(*t, scaling=2.0), (x, p[n]["kernel"], leaves[n]["a"], leaves[n]["b"]),
+                     cot[i], (False, False, True, True))
+        assert _normrel(leaves[n]["a"].grad, ref[0]) <= _GRAD_TOL[dtype], n
+        assert _normrel(leaves[n]["b"].grad, ref[1]) <= _GRAD_TOL[dtype], n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,mode", [(128, 50, 12, "none"), (128, 64, 8, "lengths"), (128, 77, 8, "lengths"),
+                                        (4, 50, 2, "mask")])
+def test_attention_small_grads_on_cuda(gen, B, S, H, mode, dtype):
+    ins = [_rand(gen, B, S, H, 64, dtype=dtype, scale=0.5) for _ in range(3)]
+    cot = _rand(gen, B, S, H, 64, dtype=dtype)
+    kw = {}
+    if mode == "lengths":
+        kw = dict(causal=True, lengths=torch.randint(1, S + 1, (B,), device="cuda", generator=gen, dtype=torch.int32))
+    elif mode == "mask":
+        kw = dict(mask=torch.where(torch.rand(B, 1, S, S, device="cuda", generator=gen) < 0.3, NEG, 0.0))
+    before = A.attention_small.launches
+    got = _grads(lambda *t: A.attention_small(*t, **kw), ins, cot, (True,) * 3)
+    assert A.attention_small.launches == before + 1
+    ref = _grads(lambda *t: A.attention_small_plain(*t, **kw), ins, cot, (True,) * 3)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2  # fp32: max-free vs exact softmax
+    for name, g, rf in zip(("dq", "dk", "dv"), got, ref):
+        assert _normrel(g, rf) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,H", [(6400, 768, 3072), (8192, 512, 2048), (50, 768, 3072)])
+def test_mlp_fused_grads_on_cuda(gen, M, K, H, dtype):
+    ins = (_rand(gen, M, K, dtype=dtype), _rand(gen, K, H, dtype=dtype, scale=K ** -0.5),
+           _rand(gen, H, scale=0.1), _rand(gen, H, K, dtype=dtype, scale=H ** -0.5), _rand(gen, K, scale=0.1))
+    cot = _rand(gen, M, K, dtype=dtype)
+    need = (True,) * 5
+    before = MF.mlp_fused.launches
+    got = _grads(MF.mlp_fused, ins, cot, need)
+    assert MF.mlp_fused.launches == before + 1
+    ref = _grads(MF.mlp_fused_plain, ins, cot, need)
+    for name, g, rf in zip(("dx", "dW1", "db1", "dW2", "db2"), got, ref):
+        assert _normrel(g, rf) <= _GRAD_TOL[dtype], name
+
+
+def test_flash_attention_refuses_grad_on_cuda(gen):
+    q, k, v = (_rand(gen, 2, 200, 2, 64) for _ in range(3))
+    before = F.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        F.flash_attention(q.requires_grad_(True), k, v)
+    assert F.flash_attention.launches == before
+    with torch.no_grad():
+        F.flash_attention(q, k, v)
+    assert F.flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_tower_lora_grads_under_auto_equal_the_plain_paths(gen, compute_dtype):
+    """The repaired fault: through the kernels under the default "auto"
+    flags, the towers' q/k/v (and out_proj) adapters get the gradients they
+    get with the kernels off."""
+    import numpy as np
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, LoraConfig
+    from clip_lora_match_tpu_torch.lora import init_lora
+    from clip_lora_match_tpu_torch.models import clip as C
+    from clip_lora_match_tpu_torch.models.io import tree_leaves, unflatten
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+    from clip_lora_match_tpu_torch.train.loss import clip_contrastive_loss
+
+    arch = ClipArchConfig(image_size=64, patch_size=32, vision_width=128, vision_layers=2, vision_heads=2,
+                          vision_mlp_dim=256, text_width=128, text_layers=2, text_heads=2, text_mlp_dim=256,
+                          projection_dim=64)
+    params = C.init_params(0, arch, device="cuda")
+    lora = init_lora(1, arch, LoraConfig(), device="cuda")
+    for tower in lora.values():
+        for proj in tower["blocks"]["attn"].values():
+            proj["b"] = _rand(gen, *proj["b"].shape, scale=0.05)
+    rng = np.random.default_rng(0)
+    pix = torch.from_numpy(rng.normal(size=(6, 64, 64, 3)).astype(np.float32)).cuda()
+    ids = torch.from_numpy(rng.integers(1, 500, (6, 77))).cuda()
+    mask = torch.ones(6, 77, dtype=torch.int32, device="cuda")
+    mask[:, 20:] = 0
+
+    def grads(**flags):
+        pairs = tree_leaves(lora)
+        live = [t.detach().clone().requires_grad_(True) for _, t in pairs]
+        tree = unflatten({path: t for (path, _), t in zip(pairs, live)})
+        with kernel_flags(**flags):
+            img = C.encode_image_features(params, pix, arch, lora=tree, lora_scaling=2.0, compute_dtype=compute_dtype)
+            txt = C.encode_text_features(params, ids, arch, attention_mask=mask, lora=tree, lora_scaling=2.0,
+                                         compute_dtype=compute_dtype)
+            loss = clip_contrastive_loss(img, txt)
+        return loss, torch.autograd.grad(loss, live)
+
+    ops.reset_launch_counts()
+    loss_k, g_k = grads()
+    counts = ops.launch_counts()
+    assert counts["lora_matmul"] == 4 * 4 and counts["attention_small"] == 4
+    loss_p, g_p = grads(fused_lora=False, small_attention=False)
+    tol = 1e-4 if compute_dtype is None else 5e-2
+    assert abs(loss_k.item() - loss_p.item()) <= tol * abs(loss_p.item())
+    for (path, _), a, b in zip(tree_leaves(lora), g_k, g_p):
+        assert b.norm() > 0 and _normrel(a, b) <= tol, path
+
+
+@pytest.mark.parametrize("remat", [True, "dots"])
+def test_remat_on_cuda_gives_the_loss_and_gradients_of_no_remat(gen, remat):
+    """Checkpointed blocks (and the selective "dots" policy) redraw the same
+    dropout masks from their per-layer generators on the card."""
+    import numpy as np
+
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, LoraConfig
+    from clip_lora_match_tpu_torch.lora import init_lora
+    from clip_lora_match_tpu_torch.models.clip import init_params
+    from clip_lora_match_tpu_torch.models.io import tree_leaves, unflatten
+    from clip_lora_match_tpu_torch.train.loss import clip_contrastive_loss
+    from clip_lora_match_tpu_torch.train.step import batch_to_device, tower_features
+
+    arch = ClipArchConfig(image_size=64, patch_size=32, vision_width=128, vision_layers=2, vision_heads=2,
+                          vision_mlp_dim=256, text_width=128, text_layers=2, text_heads=2, text_mlp_dim=256,
+                          projection_dim=64)
+    params = init_params(0, arch, device="cuda")
+    lora = init_lora(1, arch, LoraConfig(), device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {"pixel_values": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+             "input_ids": rng.integers(1, 500, (4, 16)), "attention_mask": np.ones((4, 16), np.int32)}
+
+    def run(mode):
+        pairs = tree_leaves(lora)
+        live = [t.detach().clone().requires_grad_(True) for _, t in pairs]
+        tree = unflatten({p: t for (p, _), t in zip(pairs, live)})
+        img, txt = tower_features(params, tree, batch_to_device(batch, torch.device("cuda")), arch,
+                                  LoraConfig(dropout=0.1), None, None, mode, torch.Generator().manual_seed(2))
+        loss = clip_contrastive_loss(img, txt)
+        return loss, torch.autograd.grad(loss, live)
+
+    ref_loss, ref = run(False)
+    loss, got = run(remat)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-6 * abs(ref_loss.item())
+    for a, b in zip(got, ref):
+        assert _normrel(a, b) <= 1e-5

@@ -134,7 +134,8 @@ def test_kernel_flags_take_true_auto_false_and_reject_junk(restore_flags):  # no
     assert T._KERNEL_FLAGS["flash_attention"] is False and T._KERNEL_FLAGS["fused_mlp"] is False
     for val in (True, "auto", False):
         T.set_kernel_flags(fused_lora=val, flash_attention=val, small_attention=val, fused_mlp=val)
-        assert set(T._KERNEL_FLAGS.values()) == {val}
+        kernels = ("fused_lora", "flash_attention", "small_attention", "fused_mlp")
+        assert {T._KERNEL_FLAGS[n] for n in kernels} == {val}
     prev = T.set_kernel_flags(fused_mlp=True)
     assert prev["fused_mlp"] is False and T._KERNEL_FLAGS["fused_mlp"] is True
     for name in ("fused_lora", "flash_attention", "small_attention", "fused_mlp"):
