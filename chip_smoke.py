@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's seeker and finder paths on one NVIDIA GPU.
+"""Drive the PyTorch port's paths (seeker, finder, training, evaluation) on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only topk_retrieve   # build and check one kernel (phase 2 only)
@@ -8,6 +9,7 @@
     python3 chip_smoke.py --stop-after 6         # phases 1-6 (an A/B without the image-file phase)
     python3 chip_smoke.py --stop-after 7         # phases 1-7 (an A/B without the W8A8 phase)
     python3 chip_smoke.py --stop-after 8         # phases 1-8 (an A/B without the training phase)
+    python3 chip_smoke.py --stop-after 9         # phases 1-9 (an A/B without the evaluation phase)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -124,7 +126,28 @@ Phases (any failure raises and exits non-zero):
    gradients held against (ii)), (iv) (i) with remat=True: step ms (median
    of 10), device busy and idle share, device time by kind, peak memory,
    launches; (d) make_chained_train_step K=4 against 4 single steps, bit for
-   bit.
+   bit;
+10. the evaluation job and the detector's training (the corpora made by
+   scripts/generate_fashion_corpus.py in subprocesses under a temporary
+   directory): (a) eval.cli run-all at ViT-B/32 over the in-repo 60 rows
+   and phase 9 (b)'s epoch_1..3 adapters over phase 3's base weights, the
+   launches of each encode, the written evaluation_results.json,
+   model_comparison.json and evaluation_report.md against the metric keys
+   of the committed results/model_comparison.json, and the base and epoch-3 metrics against those of the
+   same encoder with the kernels off in fp32 (a rank may differ only at a
+   near-tie); (b) eval.cli evaluate-model for the base encoder over 4,441
+   generated rows: images/s, texts/s, the host's share, and a 512-row
+   encode's device busy and idle share; (c) eval.cli similarity over phase
+   3's index (Q=256, k=10) through topk_retrieve, its ids tie-aware against
+   the plain top-k; (d) models.yolo.cli train: YOLOv8-n at 320² for one
+   epoch of 75 steps at batch 32 on the committed recipe's corpus (seed 42,
+   2,400 / 600), a falling loss, the step's median ms, busy and idle share
+   and peak memory, one loss and its gradients from the committed
+   detector's weights on the card against the CPU (normwise 1e-4), the
+   saved weights through load_detector, and --init-weights grafting every
+   leaf; (e) models.yolo.cli eval of the committed detector over the
+   regenerated val split's first 150 images in fp32 and bf16 beside its
+   eval_val.json.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -1946,6 +1969,8 @@ def _by_kind(rows) -> dict:
         gemm = any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_"))
         if "memcpy" in low:
             kind = "copies"
+        elif any(t in low for t in ("fprop", "dgrad", "wgrad", "conv")):
+            kind = "convolutions (cuDNN)"
         elif "flash" in low:
             kind = "flash_attention"
         elif any(t in low for t in ("attention_small", "lora_matmul", "mlp_fused")):
@@ -2488,11 +2513,13 @@ def _train_yaml(path: str, out: str, epochs: int) -> None:
         yaml.safe_dump(cfg, f)
 
 
-def train_end_to_end(torch, card, enc, texts, index) -> None:
+def train_end_to_end(torch, card, enc, texts, index, tmp: str) -> None:
     """Phase 9 (b): train() at full ViT-B/32 width through cli.py: a
     2-epoch run whose epoch-2 adapter is served; a 3-epoch run, and a copy
     of its output without the epoch-3 checkpoint and adapters (an
-    interruption after epoch 2) resumed for the third epoch."""
+    interruption after epoch 2) resumed for the third epoch. Everything goes
+    under ``tmp``: phase 10 evaluates ``tmp/full``'s adapters over
+    ``tmp/base.npz``."""
     from clip_lora_match_tpu_torch import ops
     from clip_lora_match_tpu_torch.core.config import LoraConfig
     from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
@@ -2500,78 +2527,74 @@ def train_end_to_end(torch, card, enc, texts, index) -> None:
     from clip_lora_match_tpu_torch.services.seeker import SeekerConfig, SeekerService
     from clip_lora_match_tpu_torch.train import cli
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_p9_")
-    try:
-        weights = os.path.join(tmp, "base.npz")
-        enc.save(weights)
-        runs = {}
-        for name, epochs in (("two", 2), ("full", 3), ("resumed", 3)):
-            _train_yaml(os.path.join(tmp, f"{name}.yaml"), os.path.join(tmp, name), epochs)
+    weights = os.path.join(tmp, "base.npz")
+    enc.save(weights)
+    runs = {}
+    for name, epochs in (("two", 2), ("full", 3), ("resumed", 3)):
+        _train_yaml(os.path.join(tmp, f"{name}.yaml"), os.path.join(tmp, name), epochs)
 
-        def run(name):
-            t = time.perf_counter()
-            runs[name] = cli.run(["--config", os.path.join(tmp, f"{name}.yaml"), "--weights", weights])
-            torch.cuda.synchronize()
-            runs[name + "_s"] = time.perf_counter() - t
+    def run(name):
+        t = time.perf_counter()
+        runs[name] = cli.run(["--config", os.path.join(tmp, f"{name}.yaml"), "--weights", weights])
+        torch.cuda.synchronize()
+        runs[name + "_s"] = time.perf_counter() - t
 
-        ops.reset_launch_counts()
-        run("two")
-        run("full")
-        shutil.copytree(os.path.join(tmp, "full"), os.path.join(tmp, "resumed"))
-        os.remove(os.path.join(tmp, "resumed", "checkpoints", "27.pt"))
-        shutil.rmtree(os.path.join(tmp, "resumed", "epoch_3"))
-        run("resumed")
-        counts = ops.launch_counts()
-        if any(counts.values()):
-            raise AssertionError(f"phase 9 (b) train() launched kernels with the training flags: {counts}")
-        two, full, resumed = runs["two"], runs["full"], runs["resumed"]
-        if (two.epochs, full.epochs, resumed.epochs) != (2, 3, 3) or (full.steps, resumed.steps) != (27, 9):
-            raise AssertionError(f"phase 9 (b) epochs {two.epochs}, {full.epochs}, {resumed.epochs}, "
-                                 f"steps {full.steps}, {resumed.steps}")
-        if resumed.train_losses != full.train_losses[-9:] or resumed.val_losses != full.val_losses[-1:]:
-            raise AssertionError(f"phase 9 (b) resumed run's losses {resumed.train_losses} differ from the "
-                                 f"uninterrupted run's {full.train_losses[-9:]}")
-        same_tree(torch, "phase 9 (b) resumed vs uninterrupted final adapter", resumed.final_lora, full.final_lora)
-        if not all(np.isfinite(two.train_losses + two.val_losses + full.train_losses + full.val_losses)):
-            raise AssertionError("phase 9 (b): non-finite losses")
-        log(f"phase 9 (b) train() through cli.py at ViT-B/32 (batch 6, r=8, alpha=16, dropout 0.1, 9 steps an "
-            f"epoch, the in-repo CSVs): launches {json.dumps(counts)} (the trainer's flags: plain products); "
-            f"epoch 3 resumed from epoch 2's checkpoint: its losses and the final adapter bit-equal to the "
-            f"uninterrupted 3-epoch run's; train losses {[round(v, 4) for v in full.train_losses]}, val losses "
-            f"{[round(v, 4) for v in full.val_losses]}; wall {runs['two_s']:.1f} s (2 epochs), "
-            f"{runs['resumed_s']:.1f} s (1 epoch resumed), {runs['full_s']:.1f} s (3 epochs, "
-            f"{27 / runs['full_s']:.2f} steps/s with data, validation and saves) [{card}]")
+    ops.reset_launch_counts()
+    run("two")
+    run("full")
+    shutil.copytree(os.path.join(tmp, "full"), os.path.join(tmp, "resumed"))
+    os.remove(os.path.join(tmp, "resumed", "checkpoints", "27.pt"))
+    shutil.rmtree(os.path.join(tmp, "resumed", "epoch_3"))
+    run("resumed")
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 9 (b) train() launched kernels with the training flags: {counts}")
+    two, full, resumed = runs["two"], runs["full"], runs["resumed"]
+    if (two.epochs, full.epochs, resumed.epochs) != (2, 3, 3) or (full.steps, resumed.steps) != (27, 9):
+        raise AssertionError(f"phase 9 (b) epochs {two.epochs}, {full.epochs}, {resumed.epochs}, "
+                             f"steps {full.steps}, {resumed.steps}")
+    if resumed.train_losses != full.train_losses[-9:] or resumed.val_losses != full.val_losses[-1:]:
+        raise AssertionError(f"phase 9 (b) resumed run's losses {resumed.train_losses} differ from the "
+                             f"uninterrupted run's {full.train_losses[-9:]}")
+    same_tree(torch, "phase 9 (b) resumed vs uninterrupted final adapter", resumed.final_lora, full.final_lora)
+    if not all(np.isfinite(two.train_losses + two.val_losses + full.train_losses + full.val_losses)):
+        raise AssertionError("phase 9 (b): non-finite losses")
+    log(f"phase 9 (b) train() through cli.py at ViT-B/32 (batch 6, r=8, alpha=16, dropout 0.1, 9 steps an "
+        f"epoch, the in-repo CSVs): launches {json.dumps(counts)} (the trainer's flags: plain products); "
+        f"epoch 3 resumed from epoch 2's checkpoint: its losses and the final adapter bit-equal to the "
+        f"uninterrupted 3-epoch run's; train losses {[round(v, 4) for v in full.train_losses]}, val losses "
+        f"{[round(v, 4) for v in full.val_losses]}; wall {runs['two_s']:.1f} s (2 epochs), "
+        f"{runs['resumed_s']:.1f} s (1 epoch resumed), {runs['full_s']:.1f} s (3 epochs, "
+        f"{27 / runs['full_s']:.2f} steps/s with data, validation and saves) [{card}]")
 
-        # -- the epoch-2 adapter, served ------------------------------------------------
-        lcfg = LoraConfig()
-        native = os.path.join(tmp, "two", "epoch_2")
-        peft = os.path.join(tmp, "peft_epoch_2")
-        os.makedirs(peft)
-        for f in ("adapter_model.safetensors", "adapter_config.json"):
-            shutil.copy(os.path.join(native, f), peft)
-        ref_enc = ClipEncoder(load_params(weights, device="cuda"), arch=enc.arch, config=enc.cfg, device="cuda")
-        ref_enc.attach_lora(two.final_lora, lcfg.scaling)
-        ref = ref_enc.encode_text(texts)
-        for name, d in (("native", native), ("PEFT", peft)):
-            e = ClipEncoder.from_config(None, weights_path=weights, lora_path=d, device="cuda")
-            got = e.encode_text(texts)
-            if not np.array_equal(got, ref):
-                raise AssertionError(f"phase 9 (b) epoch_2 {name} adapter: text embeddings differ from "
-                                     f"TrainResult.final_lora's (max {np.abs(got - ref).max():.3e})")
-            del e
-        rows = [index.append(ref[i], f"trained/{i}", t) for i, t in enumerate(texts)]
-        svc = SeekerService(ref_enc, SeekerConfig(), index=index)
-        for i, t in enumerate(texts):
-            res = svc.search_items(description=t)
-            if len(res) != 5 or res[0].index != rows[i] or not res[0].score >= 0.99:
-                raise AssertionError(f"phase 9 (b) search with the trained adapter, query {i}: "
-                                     f"top {res[0].index} {res[0].score}")
-        log(f"phase 9 (b) the epoch_2 adapter, native and PEFT, loaded by ClipEncoder.from_config: text "
-            f"embeddings bit-equal to TrainResult.final_lora's at epoch 2; {len(texts)} text searches over "
-            f"phase 3's index ({len(index)} rows with the trained encoder's rows) return their own rows first")
-        del ref_enc, svc
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # -- the epoch-2 adapter, served ------------------------------------------------
+    lcfg = LoraConfig()
+    native = os.path.join(tmp, "two", "epoch_2")
+    peft = os.path.join(tmp, "peft_epoch_2")
+    os.makedirs(peft)
+    for f in ("adapter_model.safetensors", "adapter_config.json"):
+        shutil.copy(os.path.join(native, f), peft)
+    ref_enc = ClipEncoder(load_params(weights, device="cuda"), arch=enc.arch, config=enc.cfg, device="cuda")
+    ref_enc.attach_lora(two.final_lora, lcfg.scaling)
+    ref = ref_enc.encode_text(texts)
+    for name, d in (("native", native), ("PEFT", peft)):
+        e = ClipEncoder.from_config(None, weights_path=weights, lora_path=d, device="cuda")
+        got = e.encode_text(texts)
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"phase 9 (b) epoch_2 {name} adapter: text embeddings differ from "
+                                 f"TrainResult.final_lora's (max {np.abs(got - ref).max():.3e})")
+        del e
+    rows = [index.append(ref[i], f"trained/{i}", t) for i, t in enumerate(texts)]
+    svc = SeekerService(ref_enc, SeekerConfig(), index=index)
+    for i, t in enumerate(texts):
+        res = svc.search_items(description=t)
+        if len(res) != 5 or res[0].index != rows[i] or not res[0].score >= 0.99:
+            raise AssertionError(f"phase 9 (b) search with the trained adapter, query {i}: "
+                                 f"top {res[0].index} {res[0].score}")
+    log(f"phase 9 (b) the epoch_2 adapter, native and PEFT, loaded by ClipEncoder.from_config: text "
+        f"embeddings bit-equal to TrainResult.final_lora's at epoch 2; {len(texts)} text searches over "
+        f"phase 3's index ({len(index)} rows with the trained encoder's rows) return their own rows first")
+    del ref_enc, svc
 
 
 def step_configs(torch, card, enc) -> dict:
@@ -2673,20 +2696,501 @@ def step_configs(torch, card, enc) -> dict:
     return c3
 
 
-def training_path(torch, card, enc, texts, index, gen) -> tuple[dict, dict]:
-    """Phase 9 over phase 3's encoder and index. Returns the backward rows
-    and the launches of one (iii) step."""
+def training_path(torch, card, enc, texts, index, gen, tmp: str) -> tuple[dict, dict]:
+    """Phase 9 over phase 3's encoder and index, its training runs under
+    ``tmp``. Returns the backward rows and the launches of one (iii) step."""
     t0 = time.perf_counter()
     rows = grad_checks(torch, card, gen)
     repaired_fault(torch, enc)
     log(f"phase 9 (a): {time.perf_counter() - t0:.1f} s")
     t = time.perf_counter()
-    train_end_to_end(torch, card, enc, texts, index)
+    train_end_to_end(torch, card, enc, texts, index, tmp)
     log(f"phase 9 (b): {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     counts = step_configs(torch, card, enc)
     log(f"phase 9 (c), (d): {time.perf_counter() - t:.1f} s")
     return rows, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the evaluation job and the detector's training
+# ---------------------------------------------------------------------------
+
+EVAL_ROWS = 4441  # phase 10 (b): the reference's validation size (ref:data/text/val_fashion.csv)
+# phase 10 (a): a diagonal rank may differ between the bf16 kernel path and
+# the fp32 plain path only where the two scores it orders lie this close
+NEAR_TIE = 0.01
+YOLO_B = 32  # phase 10 (d): the batch of the timed detector run
+SYNTH_DETECTOR = "models/yolo_synth/yolov8n_synth.npz"
+
+
+def _corpora(tmp: str) -> dict:
+    """Start scripts/generate_fashion_corpus.py (PIL and the stdlib) for
+    both corpora, as subprocesses writing under ``tmp``: (b)'s 4,441
+    captioned renders and (d)'s detection corpus with the committed
+    detector's recipe (seed 42, 320², 2,400 train / 600 val)."""
+    gen = os.path.join(REPO, "scripts", "generate_fashion_corpus.py")
+    cmds = {
+        "fashion": ["--out", os.path.join(tmp, "fashion"), "--n-train", "0", "--n-val", str(EVAL_ROWS)],
+        "detect": ["--detect", "--out", os.path.join(tmp, "detect"), "--seed", "42", "--imgsz", "320",
+                   "--n-train", "2400", "--n-val", "600"],
+    }
+    return {name: (time.perf_counter(), subprocess.Popen([sys.executable, gen, *args], stdout=subprocess.PIPE,
+                                                        stderr=subprocess.STDOUT, text=True))
+            for name, args in cmds.items()}
+
+
+def _corpus_ready(procs: dict, name: str) -> str:
+    t0, proc = procs[name]
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 10: generate_fashion_corpus.py ({name}) exited {proc.returncode}: {out}")
+    log(f"phase 10 corpus {name}: {out.strip().splitlines()[-1]} (ready {time.perf_counter() - t0:.1f} s "
+        f"after its start)")
+
+
+class _EncodeRecorder:
+    """Wraps ``CLIPEvaluator.encode_dataset`` while installed: each call's
+    kernel launches (the counters' difference across the call) and its
+    embeddings, in call order."""
+
+    def __init__(self, ops):
+        from clip_lora_match_tpu_torch.eval.evaluator import CLIPEvaluator
+
+        self.cls, self.ops, self.calls = CLIPEvaluator, ops, []
+        self.orig = CLIPEvaluator.encode_dataset
+
+    def __enter__(self):
+        rec = self
+
+        def encode_dataset(ev, data):
+            before = rec.ops.launch_counts()
+            out = rec.orig(ev, data)
+            after = rec.ops.launch_counts()
+            rec.calls.append(({k: after[k] - before[k] for k in after if after[k] != before[k]}, out))
+            return out
+
+        self.cls.encode_dataset = encode_dataset
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.encode_dataset = self.orig
+
+
+def _rank_flips(sim_ref: np.ndarray, sim: np.ndarray) -> list:
+    """(direction, row, rank in ref, rank in sim, largest score gap in ref
+    among the pairs whose order against the diagonal flipped)."""
+    out = []
+    for direction, a, b in (("i2t", sim_ref, sim), ("t2i", sim_ref.T, sim.T)):
+        da, db = np.diagonal(a)[:, None], np.diagonal(b)[:, None]
+        ra, rb = 1 + (a > da).sum(1), 1 + (b > db).sum(1)
+        for i in np.nonzero(ra != rb)[0]:
+            flipped = (a[i] > da[i]) != (b[i] > db[i])
+            out.append((direction, int(i), int(ra[i]), int(rb[i]), float(np.abs(a[i] - da[i])[flipped].max())))
+    return out
+
+
+def eval_run_all(torch, card, tmp, tmp9) -> dict:
+    """Phase 10 (a): ``eval.cli run-all`` at full ViT-B/32 width over the
+    in-repo 60 rows and phase 9 (b)'s 3-epoch adapters (over phase 3's
+    base weights). Returns the run's launches."""
+    import yaml
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import load_clip_config
+    from clip_lora_match_tpu_torch.eval import BASE_NAME, CLIPEvaluator, epoch_name, load_eval_csv
+    from clip_lora_match_tpu_torch.eval import cli as ecli
+    from clip_lora_match_tpu_torch.eval.protocols import diagonal_metrics, similarity_matrix
+    from clip_lora_match_tpu_torch.lora.adapter import load_lora
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.models.io import load_params
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+
+    images = os.path.join(REPO, "data", "text", "images")
+    rows = []
+    for name in ("val_fashion.csv", "train_fashion.csv"):
+        with open(os.path.join(REPO, "data", "text", name)) as f:
+            rows += f.read().splitlines()[1:]
+    csv60 = os.path.join(tmp, "val_train_60.csv")
+    with open(csv60, "w") as f:
+        f.write("\n".join(["image_path,text", *rows]) + "\n")
+    out = os.path.join(tmp, "results")
+    with open(os.path.join(REPO, "config", "evaluation_config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["paths"].update(val_csv=csv60, image_root=images, lora_dir=os.path.join(tmp9, "full"), results_dir=out,
+                        plots_dir=os.path.join(out, "plots"), qualitative_dir=os.path.join(out, "qualitative"))
+    cfg["models"]["lora_epochs"] = [1, 2, 3]
+    eval_yaml = os.path.join(tmp, "eval_a.yaml")
+    with open(eval_yaml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    clip_yaml, weights = os.path.join(REPO, "config", "clip_config.yaml"), os.path.join(tmp9, "base.npz")
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    with _EncodeRecorder(ops) as rec:
+        res = ecli.run(["run-all", "--eval-config", eval_yaml, "--clip-config", clip_yaml, "--weights", weights])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    names = ["the artifact (base)", BASE_NAME, epoch_name(1), epoch_name(2), epoch_name(3), "qualitative (base)"]
+    if len(rec.calls) != len(names):
+        raise AssertionError(f"phase 10 (a): {len(rec.calls)} encodes, expected {len(names)}")
+    arch = load_clip_config(clip_yaml).arch
+    layers = arch.vision_layers + arch.text_layers
+    for name, (c, _) in zip(names, rec.calls):
+        lora = name.startswith("CLIP+LoRA")
+        if c.get("attention_small", 0) != layers or (c.get("lora_matmul", 0) == 2 * layers) != lora or (
+                set(c) - {"attention_small", "lora_matmul"}):
+            raise AssertionError(f"phase 10 (a) {name}: launches {c}")
+    log(f"phase 10 (a) eval.cli run-all at ViT-B/32 over the in-repo 60 rows, base + phase 9 (b)'s epoch_1..3 "
+        f"adapters: {wall:.2f} s; launches per encode (60 images + 60 texts, bf16 compute): "
+        + "; ".join(f"{n}: {json.dumps(c)}" for n, (c, _) in zip(names, rec.calls)))
+
+    # the written artifacts against the committed model_comparison.json's
+    # metric keys (evaluation_results.json: the JAX package's diagonal
+    # artifact, {"retrieval": those keys but matching accuracy, "matching_accuracy"})
+    with open(os.path.join(REPO, "results", "model_comparison.json")) as f:
+        ref_cmp = json.load(f)
+    with open(os.path.join(out, "evaluation_results.json")) as f:
+        art = json.load(f)
+    with open(os.path.join(out, "model_comparison.json")) as f:
+        cmp_ = json.load(f)
+    with open(os.path.join(out, "evaluation_report.md")) as f:
+        report = f.read()
+    metric_keys = {k for m in ref_cmp.values() for k in m}
+    if set(art) != {"retrieval", "matching_accuracy"} or set(art["retrieval"]) != metric_keys - {"matching_accuracy"}:
+        raise AssertionError(f"phase 10 (a) evaluation_results.json keys {sorted(art)} / {sorted(art['retrieval'])}")
+    if list(cmp_) != names[1:5] or any(set(m) != metric_keys for m in cmp_.values()):
+        raise AssertionError(f"phase 10 (a) model_comparison.json: {list(cmp_)}, keys {[sorted(m) for m in cmp_.values()]}")
+    sections = ("## 1. Model Comparison", "## 2. Best Models", "## 3. Improvement (epoch over epoch)",
+                "## 4. Recommendations")
+    if not all(s in report for s in sections) or not all(f"| {n} |" in report for n in cmp_):
+        raise AssertionError("phase 10 (a) evaluation_report.md lacks a section or a model row")
+    log(f"phase 10 (a) evaluation_results.json, model_comparison.json (4 models x {len(metric_keys)} metrics) "
+        f"and evaluation_report.md have the JAX package's keys and sections; plots written: "
+        f"{len(res['plots'])} comparison, {len(res['grids'])} failure grids, embedding space "
+        f"{'yes' if res['embedding_plot'] else 'no'} (none without matplotlib, as in the JAX package)")
+    for n in names[1:5]:
+        log(f"  {n}: " + ", ".join(f"{k} {v:.4f}" for k, v in cmp_[n].items()))
+
+    # base and epoch 3 against the same encoder with the kernels off, fp32
+    cfg_clip = load_clip_config(clip_yaml)
+    ref = ClipEncoder(load_params(weights, device="cuda"), arch=arch, config=cfg_clip, compute_dtype="float32",
+                      device="cuda")
+    data = load_eval_csv(csv60, images)
+    off = dict(fused_lora=False, small_attention=False, flash_attention=False, fused_mlp=False)
+    ops.reset_launch_counts()
+    with kernel_flags(**off):
+        plain = {BASE_NAME: CLIPEvaluator(ref).encode_dataset(data)}
+        ref.attach_lora(*load_lora(os.path.join(tmp9, "full", "epoch_3"), device="cuda", arch=arch))
+        plain[epoch_name(3)] = CLIPEvaluator(ref).encode_dataset(data)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"phase 10 (a) the kernels-off encoder launched {ops.launch_counts()}")
+    for name, (_, kern) in ((BASE_NAME, rec.calls[1]), (epoch_name(3), rec.calls[4])):
+        want = diagonal_metrics(*plain[name], device="cuda")
+        cos = min(float(((a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min())
+                  for a, b in zip(kern, plain[name]))
+        flips = _rank_flips(similarity_matrix(*plain[name], device="cuda"), similarity_matrix(*kern, device="cuda"))
+        if cmp_[name] == want:
+            log(f"phase 10 (a) {name}: run-all's metrics equal those of the kernels-off fp32 encoder's embeddings "
+                f"(min cosine bf16 kernels vs fp32 plain {cos:.5f}; diagonal ranks differ on {len(flips)} rows)")
+            continue
+        bad = [f for f in flips if f[4] > NEAR_TIE]
+        widest = sorted(flips, key=lambda f: -f[4])[:3]
+        log(f"phase 10 (a) {name}: metrics differ from the kernels-off fp32 encoder's: "
+            + ", ".join(f"{k} {cmp_[name][k]:.4f} vs {want[k]:.4f}" for k in want if cmp_[name][k] != want[k])
+            + f"; min cosine {cos:.5f}; the diagonal's rank moves on {sum(f[0] == 'i2t' for f in flips)} of 60 "
+            f"image rows and {sum(f[0] == 't2i' for f in flips)} of 60 text rows, every move across fp32 score gaps "
+            f"of at most {widest[0][4] if flips else 0:.2e} (near-ties: all 3,600 scores of a random-weight model "
+            f"lie close together); widest (direction, row, fp32 rank, kernel rank, gap): {widest}")
+        if bad or not flips:
+            raise AssertionError(f"phase 10 (a) {name}: differences not explained by near-ties (> {NEAR_TIE}): {bad}")
+    del ref
+    return counts
+
+
+def eval_throughput(torch, card, tmp, tmp9, procs) -> dict:
+    """Phase 10 (b): ``eval.cli evaluate-model`` for the base encoder over
+    4,441 generated rows: images/s, texts/s, the host's share (PIL
+    preprocessing and tokenization), and a 512-row encode's device busy and
+    idle share. Returns the run's launches."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.eval import CLIPEvaluator, load_eval_csv
+    from clip_lora_match_tpu_torch.eval import cli as ecli
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.preprocess.pipeline import ClipPreprocessor
+
+    root = os.path.join(tmp, "fashion")
+    _corpus_ready(procs, "fashion")
+    csv_b = os.path.join(root, "val_fashion_synth.csv")
+    clip_yaml, weights = os.path.join(REPO, "config", "clip_config.yaml"), os.path.join(tmp9, "base.npz")
+    spent = {"preprocess_images": 0.0, "preprocess_text": 0.0, "encode_image": 0.0, "encode_text": 0.0}
+    saved = []
+
+    def timed(owner, name):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapper)
+
+    for owner, name in ((ClipPreprocessor, "preprocess_images"), (ClipPreprocessor, "preprocess_text"),
+                        (ClipEncoder, "encode_image"), (ClipEncoder, "encode_text")):
+        timed(owner, name)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        art = ecli.run(["evaluate-model", "--csv", csv_b, "--image-root", root, "--clip-config", clip_yaml,
+                        "--weights", weights, "--out", os.path.join(tmp, "evaluation_results_4441.json")])
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    enc_s = spent["encode_image"] + spent["encode_text"]
+    host_s = spent["preprocess_images"] + spent["preprocess_text"]
+    log(f"phase 10 (b) eval.cli evaluate-model, base ViT-B/32 over {EVAL_ROWS} generated rows "
+        f"(generate_fashion_corpus.py --n-train 0 --n-val {EVAL_ROWS}), batches of 256: {wall:.2f} s in all "
+        f"(encoder build and the weights' load included); encode_image {spent['encode_image']:.2f} s = "
+        f"{EVAL_ROWS / spent['encode_image']:.1f} images/s, encode_text {spent['encode_text']:.2f} s = "
+        f"{EVAL_ROWS / spent['encode_text']:.1f} texts/s; host preprocessing {host_s:.2f} s "
+        f"(PIL images {spent['preprocess_images']:.2f}, tokenizer {spent['preprocess_text']:.2f}) = "
+        f"{host_s / enc_s:.3f} of the encode time; recall@1 {art['retrieval']['recall@1']:.5f} "
+        f"(random weights: chance 1/{EVAL_ROWS}); launches {json.dumps({k: v for k, v in counts.items() if v})} "
+        f"[{card}]")
+    if art["retrieval"].keys() != {"recall@1", "recall@5", "recall@10", "mrr", "map", "t2i_recall@1",
+                                   "t2i_recall@5", "t2i_recall@10"} or not counts["attention_small"]:
+        raise AssertionError(f"phase 10 (b): artifact {art}, launches {counts}")
+    enc = ClipEncoder.from_config(clip_yaml, weights_path=weights, device="cuda")
+    data = load_eval_csv(csv_b, root, max_rows=512)
+    ev = CLIPEvaluator(enc)
+    rows = device_rows(torch, lambda: ev.encode_dataset(data))
+    wall512 = _host_ms(lambda: ev.encode_dataset(data), reps=2)
+    busy = sum(r[0] for r in rows)
+    log(f"phase 10 (b) one 512-row encode_dataset (2 batches of 256 images and texts): device busy {busy:.2f} ms "
+        f"of {wall512:.2f} ms wall, idle share {1 - busy / wall512:.3f}; by kind {json.dumps(_by_kind(rows))} "
+        f"[{card}]")
+    del enc, ev
+    return counts
+
+
+def eval_similarity(torch, card, tmp, index) -> dict:
+    """Phase 10 (c): ``eval.cli similarity`` over phase 3's index (Q=256,
+    k=10), its ids held tie-aware against the plain top-k. Returns its
+    launches."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.eval import cli as ecli
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+    from clip_lora_match_tpu_torch.retrieval.similarity import l2_normalize
+
+    path = os.path.join(tmp, "index.npz")
+    index.save(path)
+    ops.reset_launch_counts()
+    res = ecli.run(["similarity", "--index", path, "--queries", "256", "--k", "10", "--iters", "20"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts["topk_retrieve"] != 21 or sum(counts.values()) != 21:
+        raise AssertionError(f"phase 10 (c): launches {counts} (expected topk_retrieve 21: a warm-up and 20)")
+    emb = EmbeddingIndex.load(path, device="cuda").embeddings
+    sims = l2_normalize(torch.from_numpy(res["queries"]).cuda()) @ emb.T
+    rs, ri = torch.topk(sims, 10, dim=1)
+    ids = torch.from_numpy(res["ids"]).cuda().long()
+    assert_ids_tie_aware(torch, "phase 10 (c) similarity", ids, rs, ri, 1e-5)
+    err = float((torch.from_numpy(res["scores"]).cuda() - rs).abs().max())
+    log(f"phase 10 (c) eval.cli similarity over phase 3's index ({res['rows']} rows, D=512 fp32), Q=256 k=10: "
+        f"{res['ms_per_batch']:.4f} ms/batch, {res['queries_per_s']:.0f} queries/s (20 iterations, readback "
+        f"included); route topk_retrieve_auto -> topk_retrieve (streaming band), launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; ids tie-aware equal to the plain top-k "
+        f"(fp32 product, torch.topk), scores within {err:.2e} [{card}]")
+    return counts
+
+
+def _yolo_loss_grads(torch, tree, batch, dev, dtype=None):
+    """The detection loss and its gradients from a numpy tree (file layout)
+    over a ``DetectDataset`` batch on ``dev``, in fp32 (or ``dtype``)."""
+    from clip_lora_match_tpu_torch.models.io import tree_leaves
+    from clip_lora_match_tpu_torch.models.yolo import train as YT
+    from clip_lora_match_tpu_torch.models.yolo import yolov8 as Y
+
+    dtype = dtype or torch.float32
+    params = Y.params_from_jax(tree, dev)
+    live = [t.detach().to(dtype).requires_grad_(True) for _, t in tree_leaves(params)]
+    p = YT._rebuild(params, iter(live))
+    S = batch["images"].shape[1]
+    anchors, spa = (t.to(dtype) for t in YT.make_anchors(S, device=dev))
+    x = torch.from_numpy(batch["images"]).to(dev).to(dtype) / torch.tensor(255.0, device=dev, dtype=dtype)
+    loss, aux = YT.detection_loss(p, x.permute(0, 3, 1, 2).contiguous(),
+                                  torch.from_numpy(batch["boxes"]).to(dev, dtype),
+                                  *(torch.from_numpy(batch[k]).to(dev) for k in ("classes", "valid")),
+                                  anchors, spa)
+    return loss.item(), aux["num_fg"].item(), [g.cpu().double() for g in torch.autograd.grad(loss, live)]
+
+
+def detector_training(torch, card, tmp, procs) -> None:
+    """Phase 10 (d): YOLOv8-n trained through ``models.yolo.cli train`` for
+    one epoch on the committed recipe's corpus, its step on the card against
+    the CPU, the saved weights detecting, the warm start's graft; (e): the
+    committed detector evaluated beside ``eval_val.json``."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import YoloConfig
+    from clip_lora_match_tpu_torch.models.yolo import cli as ycli
+    from clip_lora_match_tpu_torch.models.yolo import train as YT
+    from clip_lora_match_tpu_torch.models.yolo import yolov8 as Y
+    from clip_lora_match_tpu_torch.train.step import AdamW, Chain, ClipByGlobalNorm
+
+    data = os.path.join(tmp, "detect")
+    _corpus_ready(procs, "detect")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = ycli.run(["train", "--data", data, "--out", os.path.join(tmp, "yolo_out"), "--imgsz", "320",
+                    "--epochs", "1", "--batch-size", str(YOLO_B), "--log-every", "5"])
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    losses = [a["loss"] for a in res["logged"]]
+    if any(counts.values()):
+        raise AssertionError(f"phase 10 (d) the detector's training launched {counts}")
+    if res["steps"] != 2400 // YOLO_B or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 10 (d) {res['steps']} steps, logged losses {losses}")
+    log(f"phase 10 (d) models.yolo.cli train, YOLOv8-n 320^2 from the port's seeded init, 1 epoch of "
+        f"{res['steps']} steps at batch {YOLO_B} (2,400 images, fp32, TF32 matmul {tf32[0]} cuDNN {tf32[1]}): "
+        f"{res['seconds']:.2f} s = {res['steps'] * YOLO_B / res['seconds']:.1f} img/s end to end (first step "
+        f"included); peak memory {peak / 2 ** 30:.2f} GiB; logged losses (every 5 steps) "
+        f"{[round(v, 3) for v in losses]}: first {losses[0]:.4f}, last {losses[-1]:.4f}; launches of the eight "
+        f"kernels 0 (cuDNN convolutions, plain TAL and losses) [{card}]")
+
+    # the step alone, from the trained weights, over 10 batches of the first 320 images
+    sub = os.path.join(tmp, "detect_sub")
+    os.makedirs(sub)
+    shutil.copy(os.path.join(data, "classes.txt"), sub)
+    with open(os.path.join(data, "boxes_train.csv")) as f:
+        head = f.read().splitlines()[: 1 + 10 * YOLO_B]
+    with open(os.path.join(sub, "boxes_train.csv"), "w") as f:
+        f.write("\n".join(head) + "\n")
+    ds = YT.DetectDataset(os.path.join(sub, "boxes_train.csv"), 320)
+    batches = list(ds.batches(YOLO_B, np.random.default_rng(1)))
+    tx = Chain(ClipByGlobalNorm(10.0), AdamW(1e-4, weight_decay=5e-4))
+    params = Y.params_from_jax(Y.read_detector(res["weights"])[0], "cuda")
+    step = YT.make_yolo_train_step(320, tx, device="cuda")
+    state = YT.YoloTrainState(params, tx.init(params), 0)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    samples = []
+    for b in batches:
+        t = time.perf_counter()
+        state, aux = step(state, b)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(samples)
+    rows = device_rows(torch, lambda: step(state, batches[0]))
+    busy = sum(r[0] for r in rows)
+    log(f"phase 10 (d) the B={YOLO_B} 320^2 train step: median of 10 {ms:.2f} ms (min {min(samples):.2f}) = "
+        f"{YOLO_B * 1e3 / ms:.1f} img/s; device busy {busy:.2f} ms, idle share {1 - busy / ms:.3f}; by kind "
+        f"{json.dumps(_by_kind(rows))} [{card}]")
+    for ms_, count, key in sorted(rows, reverse=True)[:6]:
+        log(f"  {ms_:9.3f} ms  x{count:<5d} {key[:100]}")
+    del state, step
+
+    # one step's loss and gradients on the card against the CPU (fp32, TF32
+    # off), and both against the CPU in fp64: a leaf whose gradient is a sum
+    # that cancels shows the summation order of fp32 in either
+    committed = Y.read_detector(os.path.join(REPO, SYNTH_DETECTOR))[0]
+    small = {k: v[:8] for k, v in batches[0].items()}
+    cpu = _yolo_loss_grads(torch, committed, small, "cpu")
+    card_ = _yolo_loss_grads(torch, committed, small, "cuda")
+    exact = _yolo_loss_grads(torch, committed, small, "cpu", torch.float64)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+    def flat(gs):
+        return torch.cat([g.flatten() for g in gs])
+
+    whole, whole64 = rel(flat(card_[2]), flat(cpu[2])), rel(flat(card_[2]), flat(exact[2]))
+    leaf = [(rel(a, b), rel(a, c), rel(b, c)) for a, b, c in zip(card_[2], cpu[2], exact[2])]
+    worst = max(range(len(leaf)), key=lambda i: leaf[i][0])
+    loss_rel = abs(card_[0] - cpu[0]) / abs(cpu[0])
+    if card_[1] != cpu[1] or loss_rel > 1e-5 or whole > 1e-4 or whole64 > 1e-4:
+        raise AssertionError(f"phase 10 (d) card vs CPU: loss {card_[0]} vs {cpu[0]}, fg {card_[1]} vs {cpu[1]}, "
+                             f"gradients {whole:.3e} normwise ({whole64:.3e} from fp64)")
+    log(f"phase 10 (d) one detection loss and its gradients from the committed detector's weights over 8 images "
+        f"of the first batch, card against CPU (fp32, TF32 off): loss {card_[0]:.6f} vs {cpu[0]:.6f} (rel "
+        f"{loss_rel:.2e}), positives {card_[1]}; the {len(leaf)} gradient leaves together within {whole:.2e} "
+        f"normwise of the CPU's and {whole64:.2e} of the CPU's fp64 gradient; leaf by leaf median "
+        f"{statistics.median(v[0] for v in leaf):.2e}, worst {leaf[worst][0]:.2e} (leaf {worst}: the card's fp32 "
+        f"{leaf[worst][1]:.2e} and the CPU's fp32 {leaf[worst][2]:.2e} from fp64); the card's leaves from fp64 "
+        f"at most {max(v[1] for v in leaf):.2e}, the CPU's {max(v[2] for v in leaf):.2e} [{card}]")
+
+    # the trained weights, saved as the JAX trainer saves them, served through load_detector
+    det = Y.load_detector(res["weights"], device="cuda")
+    m1 = ycli.evaluate(det, os.path.join(data, "boxes_val.csv"), det.cfg, limit=100)
+    log(f"phase 10 (d) {os.path.basename(res['weights'])} (fp16, the JAX file layout) through load_detector "
+        f"(imgsz {det.cfg.imgsz} from its meta.json), bf16: after 1 epoch over 100 val images {json.dumps(m1)}")
+    del det
+
+    # the warm start from the committed detector: every leaf grafted
+    g = ycli.run(["train", "--data", sub, "--out", os.path.join(tmp, "graft_out"), "--imgsz", "320",
+                  "--epochs", "1", "--batch-size", str(YOLO_B), "--init-weights",
+                  os.path.join(REPO, SYNTH_DETECTOR), "--log-every", "5"])
+    if g["grafted"] != g["leaves"]:
+        raise AssertionError(f"phase 10 (d) --init-weights grafted {g['grafted']} of {g['leaves']} leaves")
+    log(f"phase 10 (d) --init-weights {SYNTH_DETECTOR}: {g['grafted']}/{g['leaves']} leaves grafted "
+        f"(the same 10 classes)")
+
+    # (e) the committed detector on the regenerated val split
+    ops.reset_launch_counts()
+    m16 = ycli.run(["eval", "--data", data, "--weights", os.path.join(REPO, SYNTH_DETECTOR), "--limit", "150"])
+    det32 = Y.load_detector(os.path.join(REPO, SYNTH_DETECTOR), YoloConfig(), device="cuda",
+                            compute_dtype=torch.float32)
+    m32 = ycli.evaluate(det32, os.path.join(data, "boxes_val.csv"), det32.cfg, limit=150)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"phase 10 (e) the detector launched {ops.launch_counts()}")
+    with open(os.path.join(REPO, "models", "yolo_synth", "eval_val.json")) as f:
+        ref = json.load(f)
+    log(f"phase 10 (e) models.yolo.cli eval of {SYNTH_DETECTOR} on the regenerated val split, first 150 images "
+        f"[{card}]:")
+    for name, m in (("eval_val.json (committed)", ref), ("port fp32", m32), ("port bf16 (the card's default)", m16)):
+        log(f"  {name}: " + ", ".join(f"{k} {m[k]:.4f}" if isinstance(m[k], float) else f"{k} {m[k]}" for k in ref))
+    diff = {k: (m32[k] - ref[k], m16[k] - ref[k]) for k in ref if m32[k] != ref[k] or m16[k] != ref[k]}
+    log(f"  differences from the committed (fp32, bf16): {json.dumps(diff) if diff else 'none'}")
+    if m32["recall@0.5"] < 0.9 or m16["recall@0.5"] < 0.9:
+        raise AssertionError(f"phase 10 (e): fp32 {m32}, bf16 {m16} against {ref}")
+
+
+def evaluation_path(torch, card, index, tmp9) -> dict:
+    """Phase 10 over phase 3's index and phase 9 (b)'s weights and adapters,
+    its corpora generated under a temporary directory. Returns the launches
+    of its counted runs ((a)-(c))."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p10_")
+    procs = _corpora(tmp)
+    try:
+        counts = eval_run_all(torch, card, tmp, tmp9)
+        log(f"phase 10 (a): {time.perf_counter() - t0:.1f} s")
+        t = time.perf_counter()
+        for part in (eval_throughput(torch, card, tmp, tmp9, procs), eval_similarity(torch, card, tmp, index)):
+            counts = {k: counts[k] + part[k] for k in counts}
+        log(f"phase 10 (b), (c): {time.perf_counter() - t:.1f} s")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        detector_training(torch, card, tmp, procs)
+        log(f"phase 10 (d), (e): {time.perf_counter() - t:.1f} s")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def main() -> int:
@@ -2778,23 +3282,31 @@ def main() -> int:
             files = (loader, *file_corpus(tmp7))
             log(f"phase 7 files: {len(files[1])} renders (224^2, quality 92) and {len(files[2])} "
                 f"photos (1200x1600, quality 90) written in {time.perf_counter() - t:.2f} s")
-        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8"))
+        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8", "9"))
         for name in OFF_BY_DEFAULT:
             counts[name] = l14[name]
         torch.cuda.empty_cache()
         crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
         if files is not None:
             image_files_path(torch, card, enc, files)
-        if stop_after in (None, "8"):
+        if stop_after in (None, "8", "9"):
             torch.cuda.empty_cache()
             w8a8_path(torch, card, enc, texts, images, index, lat3)
     finally:
         if tmp7 is not None:
             shutil.rmtree(tmp7, ignore_errors=True)
     bwd, train_counts = {}, {name: 0 for name in KERNELS}
-    if stop_after is None:
-        torch.cuda.empty_cache()
-        bwd, train_counts = training_path(torch, card, enc, texts, index, gen)
+    eval_counts = {name: 0 for name in KERNELS}
+    if stop_after in (None, "9"):
+        tmp9 = tempfile.mkdtemp(prefix="chip_smoke_p9_")
+        try:
+            torch.cuda.empty_cache()
+            bwd, train_counts = training_path(torch, card, enc, texts, index, gen, tmp9)
+            if stop_after is None:
+                torch.cuda.empty_cache()
+                eval_counts = evaluation_path(torch, card, index, tmp9)
+        finally:
+            shutil.rmtree(tmp9, ignore_errors=True)
 
     table = []
     for name, (rows, worst) in results.items():
@@ -2811,6 +3323,8 @@ def main() -> int:
             "launches_phase6": crop[name] + http[name],
             # phase 9 (c) (iii): one B=128 train step with fused_lora and small_attention on
             "launches_phase9": train_counts[name],
+            # phase 10's counted runs: run-all, evaluate-model (4,441 rows), similarity
+            "launches_phase10": eval_counts[name],
         })
         if name in bwd:  # phase 9 (a): the backward (plain fp32 products) at the fp32 image-tower shape
             b = bwd[name][0]

@@ -7,7 +7,8 @@ serving path needs: ``ClipArchConfig`` (with the same presets), ``ClipConfig``,
 ``config/yolo_config.yaml``; ``DBConfig`` with ``load_db_config`` for
 ``config/db_config.yaml``; ``TrainingConfig`` with ``load_lora_config`` for
 ``config/lora_config.yaml`` (its ``model:``, ``lora:``, ``data:`` and
-``training:`` blocks); and ``to_dict``. Unknown keys are ignored.
+``training:`` blocks); ``EvalConfig`` with ``load_eval_config`` for
+``config/evaluation_config.yaml``; and ``to_dict``. Unknown keys are ignored.
 """
 
 from __future__ import annotations
@@ -368,6 +369,61 @@ def load_db_config(path: Optional[str] = None) -> DBConfig:
     block = raw.get("postgres", raw) or {}
     names = {f.name for f in dataclasses.fields(DBConfig)}
     return DBConfig(**{k: v for k, v in block.items() if k in names})
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Mirrors config/evaluation_config.yaml's ``paths:``, ``models:`` and
+    ``evaluation:`` blocks."""
+
+    train_csv: str = "data/text/train_fashion.csv"
+    val_csv: str = "data/text/val_fashion.csv"
+    test_csv: str = "data/text/val_fashion.csv"
+    image_root: str = "data/text/images"
+    lora_dir: str = "models/saved/clip-lora"
+    results_dir: str = "results"
+    plots_dir: str = "results/plots"
+    qualitative_dir: str = "results/qualitative"
+    lora_epochs: Sequence[int] = (1,)
+    best_epoch: int = 1
+    recall_k_values: Sequence[int] = (1, 5, 10)
+    num_failure_cases: int = 10
+    num_top_k_visualize: int = 5
+    embedding_viz_method: str = "tsne"
+    skip_base: bool = False
+    skip_qualitative: bool = False
+    # the threshold-relevance protocol's constant (ref:scripts/evaluate.py:24)
+    relevance_threshold: float = 0.7
+
+
+def load_eval_config(path: Optional[str] = None) -> EvalConfig:
+    """Parse the config/evaluation_config.yaml shape; a missing path gives
+    defaults."""
+    if path is None or not os.path.exists(path):
+        return EvalConfig()
+    raw = _read_yaml(path)
+    paths = raw.get("paths", {}) or {}
+    models = raw.get("models", {}) or {}
+    ev = raw.get("evaluation", {}) or {}
+    d = EvalConfig()
+    return EvalConfig(
+        train_csv=paths.get("train_csv", d.train_csv),
+        val_csv=paths.get("val_csv", d.val_csv),
+        test_csv=paths.get("test_csv", d.test_csv),
+        image_root=paths.get("image_root", d.image_root),
+        lora_dir=paths.get("lora_dir", d.lora_dir),
+        results_dir=paths.get("results_dir", d.results_dir),
+        plots_dir=paths.get("plots_dir", d.plots_dir),
+        qualitative_dir=paths.get("qualitative_dir", d.qualitative_dir),
+        lora_epochs=tuple(models.get("lora_epochs", d.lora_epochs)),
+        best_epoch=models.get("best_epoch", d.best_epoch),
+        recall_k_values=tuple(ev.get("recall_k_values", d.recall_k_values)),
+        num_failure_cases=ev.get("num_failure_cases", d.num_failure_cases),
+        num_top_k_visualize=ev.get("num_top_k_visualize", d.num_top_k_visualize),
+        embedding_viz_method=ev.get("embedding_viz_method", d.embedding_viz_method),
+        skip_base=ev.get("skip_base", d.skip_base),
+        skip_qualitative=ev.get("skip_qualitative", d.skip_qualitative),
+    )
 
 
 def to_dict(cfg: Any) -> dict:

@@ -191,7 +191,8 @@ class ClipEncoder:
     # -- LoRA -----------------------------------------------------------------
 
     def attach_lora(self, lora_params, scaling: float) -> None:
-        self.lora = to_device(lora_params, self.device, torch.float32)
+        """Serve ``lora_params`` at ``scaling``; None serves the base model."""
+        self.lora = None if lora_params is None else to_device(lora_params, self.device, torch.float32)
         self.lora_scaling = scaling
         self._serving = None
 

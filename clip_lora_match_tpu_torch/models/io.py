@@ -64,11 +64,13 @@ def unflatten(flat: dict) -> Params:
 
 
 def tree_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    """[("a/b/c", leaf)] of nested dicts in sorted key order (the JAX
-    package's leaf order), the leaves as they are; ``unflatten(dict(...))``
-    rebuilds the tree."""
+    """[("a/b/c", leaf)] of nested dicts in sorted key order and lists in
+    order (the JAX package's leaf order), the leaves as they are; for a tree
+    of dicts alone ``unflatten(dict(...))`` rebuilds it."""
     if isinstance(tree, dict):
         return [kv for k in sorted(tree) for kv in tree_leaves(tree[k], f"{prefix}{k}{_SEP}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in tree_leaves(v, f"{prefix}{i}{_SEP}")]
     return [(prefix.rstrip(_SEP), tree)]
 
 

@@ -16,7 +16,8 @@ port computes NCHW (``channels_last`` on CUDA, where cuDNN's tensor-core
 convolutions want it); the convolutions are ``torch.nn.functional.conv2d``,
 as the JAX package leaves its convolutions to XLA. The weight files are the
 JAX package's: a flat ``.npz`` tree with HWIO kernels, or an ultralytics
-state dict. ``params_from_jax`` is the one place that turns HWIO into OIHW.
+state dict. ``params_from_jax`` is the one place that turns HWIO into OIHW,
+and ``params_to_jax`` the one that turns it back (the trainer's saves).
 """
 
 from __future__ import annotations
@@ -179,6 +180,19 @@ def params_from_jax(tree: Params, device: str | torch.device = "cuda") -> Params
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1)) if a.ndim == 4 else a
 
     return to_device(tree_map(leaf, _lists(tree)), dev, torch.float32)
+
+
+def params_to_jax(params: Params, dtype=np.float32) -> Params:
+    """The inverse of ``params_from_jax``: a torch tree → a numpy tree in the
+    JAX package's layout (kernels (kh, kw, cin, cout), lists kept), leaves
+    cast to ``dtype``; ``models.io.save_params`` writes it as the JAX
+    trainer writes its weights."""
+
+    def leaf(t):
+        a = t.detach().float().cpu().numpy()
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0) if a.ndim == 4 else a).astype(dtype)
+
+    return tree_map(leaf, params)
 
 
 def _init_conv(rng, kh, cin, cout):

@@ -11,7 +11,8 @@ counters, so that a run follows the JAX package's trajectory:
 
 - ``warmup_linear_schedule``: optax's ``join_schedules`` of two
   ``linear_schedule``s, evaluated in float32 at the count *before* the
-  increment, so the first update has learning rate 0;
+  increment, so the first update has learning rate 0
+  (``warmup_cosine_decay_schedule``, the YOLOv8 trainer's, likewise);
 - ``ClipByGlobalNorm``: ``t`` if the global norm is below the limit, else
   ``(t / norm) * limit``;
 - ``AdamW``: optax's ``adamw``: ``scale_by_adam`` (bias-corrected moments,
@@ -103,6 +104,28 @@ def warmup_linear_schedule(
     up = _linear_schedule(0.0, base_lr, warmup)
     down = _linear_schedule(base_lr, 0.0, max(1, total_steps - warmup))
     return lambda count: up(count) if count < warmup else down(count - warmup)
+
+
+def warmup_cosine_decay_schedule(
+    init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+    end_value: float = 0.0,
+) -> Callable[[int], np.float32]:
+    """optax.warmup_cosine_decay_schedule (exponent 1) in float32: a linear
+    warmup from ``init_value`` to ``peak_value`` over ``warmup_steps``, then
+    a cosine decay to ``end_value`` at ``decay_steps`` (the warmup counted
+    in), flat after it. The YOLOv8 trainer's schedule."""
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must exceed warmup_steps {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    up = _linear_schedule(init_value, peak_value, warmup_steps)
+    T = np.float32(decay_steps - warmup_steps)
+
+    def down(count: int) -> np.float32:
+        c = np.minimum(np.float32(count), T)
+        cosine = np.float32(0.5) * (np.float32(1) + np.cos(np.float32(np.pi) * c / T))
+        return np.float32(peak_value) * (np.float32(1 - alpha) * cosine + np.float32(alpha))
+
+    return lambda count: up(count) if count < warmup_steps else down(count - warmup_steps)
 
 
 class ClipByGlobalNorm:

@@ -1409,3 +1409,115 @@ def test_remat_on_cuda_gives_the_loss_and_gradients_of_no_remat(gen, remat):
     assert abs(loss.item() - ref_loss.item()) <= 1e-6 * abs(ref_loss.item())
     for a, b in zip(got, ref):
         assert _normrel(a, b) <= 1e-5
+
+
+# -- the evaluation job and the detector's training on the card -----------------
+
+
+def test_similarity_matrix_on_cuda_is_true_fp32(gen):
+    """The evaluator's product on the card, with TF32 on in the process:
+    within 1e-6 of numpy's fp64 product of the same unit rows, and the
+    process's setting left as it was."""
+    import numpy as np
+
+    from clip_lora_match_tpu_torch.eval.protocols import similarity_matrix
+
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(300, 512)).astype(np.float32)
+    b = rng.normal(size=(257, 512)).astype(np.float32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = similarity_matrix(a, b, device="cuda")
+        assert torch.backends.cuda.matmul.allow_tf32
+        got_t = similarity_matrix(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    unit = lambda x: x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)  # noqa: E731
+    want = unit(a).astype(np.float64) @ unit(b).astype(np.float64).T
+    assert got.dtype == np.float32 and got.shape == (300, 257)
+    assert np.abs(got - want).max() <= 1e-6
+    assert np.abs(got_t - want).max() <= 1e-6
+
+
+def test_yolo_train_step_grads_on_cuda_match_the_cpu(gen):
+    """One detection loss and its gradients (fp32, cuDNN TF32 off) from the
+    committed synthetic-corpus detector's weights over two renders with
+    their boxes, on the card against the CPU: normwise within 1e-4."""
+    import numpy as np
+
+    from clip_lora_match_tpu_torch.models.io import tree_leaves
+    from clip_lora_match_tpu_torch.models.yolo import train as TT
+    from clip_lora_match_tpu_torch.models.yolo import yolov8 as Y
+
+    import os
+    import random
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
+    import generate_fashion_corpus as g
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = random.Random(7)
+    imgs, boxes = [], np.zeros((2, 4, 4), np.float32)
+    cls, valid = np.zeros((2, 4), np.int32), np.zeros((2, 4), bool)
+    for i in range(2):
+        img, bs = g.render_detect_image(rng, 320, 2)
+        imgs.append(np.asarray(img, np.uint8))
+        for m, (x1, y1, x2, y2, c) in enumerate(bs):
+            boxes[i, m], cls[i, m], valid[i, m] = (x1, y1, x2, y2), c, True
+    tree = Y.read_detector(_SYNTH)[0]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = Y.params_from_jax(tree, dev)
+        live = [t.detach().requires_grad_(True) for _, t in tree_leaves(params)]
+        p = TT._rebuild(params, iter(live))
+        anchors, spa = TT.make_anchors(320, device=dev)
+        x = (torch.from_numpy(np.stack(imgs)).to(dev).float() / torch.tensor(255.0, device=dev)).permute(0, 3, 1, 2)
+        loss, aux = TT.detection_loss(p, x.contiguous(), *(torch.from_numpy(a).to(dev) for a in (boxes, cls, valid)),
+                                      anchors, spa)
+        out[dev] = (loss.item(), aux["num_fg"].item(), [t.cpu() for t in torch.autograd.grad(loss, live)])
+    assert out["cuda"][1] == out["cpu"][1] > 0
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        assert _normrel(a, b) <= 1e-4
+
+
+def test_evaluator_encode_launches_the_kernels_under_auto(gen):
+    """``CLIPEvaluator.encode_dataset`` on the card runs attention_small
+    and lora_matmul (q/k/v grouped, out_proj) in every layer of both towers,
+    and its embeddings agree with the CPU's plain fp32 path."""
+    import numpy as np
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, ClipConfig, LoraConfig
+    from clip_lora_match_tpu_torch.eval import CLIPEvaluator, load_eval_csv
+    from clip_lora_match_tpu_torch.lora import init_lora
+    from clip_lora_match_tpu_torch.models.clip import init_params
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+
+    arch = ClipArchConfig(image_size=64, patch_size=32, vision_width=128, vision_layers=2, vision_heads=2,
+                          vision_mlp_dim=256, text_width=128, text_layers=2, text_heads=2, text_mlp_dim=256,
+                          projection_dim=64)
+    params = init_params(0, arch, device="cpu")
+    lora = init_lora(1, arch, LoraConfig(), device="cpu")
+    for tower in lora.values():
+        for proj in tower["blocks"]["attn"].values():
+            proj["b"] = torch.randn(proj["b"].shape, generator=torch.Generator().manual_seed(3)) * 0.05
+    cfg = ClipConfig(arch=arch)
+    data = load_eval_csv("data/text/val_fashion.csv", "data/text/images")
+    embs = {}
+    for dev in ("cuda", "cpu"):
+        enc = ClipEncoder(params, arch=arch, config=cfg, device=dev, compute_dtype="float32")
+        enc.attach_lora(lora, 2.0)
+        ops.reset_launch_counts()
+        embs[dev] = CLIPEvaluator(enc).encode_dataset(data)
+        counts = ops.launch_counts()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            layers = arch.vision_layers + arch.text_layers
+            assert counts["attention_small"] == layers and counts["lora_matmul"] == 2 * layers
+        else:
+            assert not any(counts.values())
+    for got, want in zip(embs["cuda"], embs["cpu"]):
+        assert got.shape == want.shape == (len(data.texts), 64)
+        assert np.abs(got - want).max() <= 1e-4
