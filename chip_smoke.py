@@ -10,6 +10,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --stop-after 7         # phases 1-7 (an A/B without the W8A8 phase)
     python3 chip_smoke.py --stop-after 8         # phases 1-8 (an A/B without the training phase)
     python3 chip_smoke.py --stop-after 9         # phases 1-9 (an A/B without the evaluation phase)
+    python3 chip_smoke.py --stop-after 10        # phases 1-10 (an A/B without the data axis)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -147,7 +148,28 @@ Phases (any failure raises and exits non-zero):
    saved weights through load_detector, and --init-weights grafting every
    leaf; (e) models.yolo.cli eval of the committed detector over the
    regenerated val split's first 150 images in fp32 and bf16 beside its
-   eval_val.json.
+   eval_val.json;
+11. the data axis over torch.distributed ranks (the kernels built once above;
+   spawned ranks of this script, --phase11-rank, only load them; a file store
+   in a temporary directory; a join timeout): (a) one NCCL rank (this
+   process) on cuda:0: all_gather and all_reduce of CUDA tensors, and
+   sharded_topk_retrieve over phase 4 (a)'s 1,048,586 fp32 rows and (b)'s
+   524,298 bf16 rows and sharded_topk_retrieve_q8 over (a) quantized, Q = 1
+   and 64 at k = 5 and Q = 1 at k = 300, bit-equal to the unsharded
+   two-pass searches; (b) gloo worlds of 2 and 4 ranks sharing cuda:0, each
+   rank holding its shard of the same rows padded by pad_to_multiple: the
+   same searches tie-aware equal (scores within 1e-6, int8 exact), one
+   pass-1 launch a search on the body its Q picks (logged by rank), a seeded
+   all-negative index padded with its best rows in the last shard (no pad
+   id), each search's wall ms and its gather-and-merge ms by world size;
+   (c) index.cli build-text at 2 ranks over 4,441 generated rows
+   (attention_small and lora_matmul on each rank) against the 1-process
+   build (cosine >= 0.99999, self-retrieval); (d) the B=128 fp32 step at 2
+   ranks (64 rows a rank, phase 9's weights and adapter, dropout 0) against
+   one process over 3 steps (losses, grad norms, LoRA leaves within rel
+   1e-5) and its ms beside one process's, and torchrun --nproc-per-node 2
+   of train.cli over the in-repo rows (batch 6, 2 epochs): only rank 0
+   writes, and its epoch_2 adapter is within rel 1e-5 of a 1-process run's.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -2497,15 +2519,15 @@ def repaired_fault(torch, enc) -> None:
         f"loss {auto[0].item():.6f} vs {off[0].item():.6f})")
 
 
-def _train_yaml(path: str, out: str, epochs: int) -> None:
+def _train_yaml(path: str, out: str, epochs: int, dropout: float = 0.1) -> None:
     """config/lora_config.yaml with phase 9 (b)'s run: batch 6, r=8,
-    alpha=16, dropout 0.1, ``epochs`` epochs, logging every 5 steps, the
-    in-repo CSVs."""
+    alpha=16, ``dropout`` (0.1), ``epochs`` epochs, logging every 5 steps,
+    the in-repo CSVs."""
     import yaml
 
     with open(os.path.join(REPO, "config/lora_config.yaml")) as f:
         cfg = yaml.safe_load(f)
-    cfg["lora"].update(r=8, alpha=16, dropout=0.1)
+    cfg["lora"].update(r=8, alpha=16, dropout=dropout)
     cfg["data"] = {"train_csv": os.path.join(REPO, "data/text/train_fashion.csv"),
                    "val_csv": os.path.join(REPO, "data/text/val_fashion.csv"), "image_root_dir": REPO}
     cfg["training"].update(batch_size=6, num_epochs=epochs, logging_steps=5, output_dir=out)
@@ -3193,7 +3215,527 @@ def evaluation_path(torch, card, index, tmp9) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the data axis across ranks
+# ---------------------------------------------------------------------------
+
+P11_JOIN_S = 300  # a world of spawned ranks, or torchrun, must end within this
+P11_COLLECTIVE_S = 180  # seconds a collective may wait
+P11_K = 5
+P11_NEG_ROWS = 100_003  # (b): the all-negative index, padded over the ranks
+P11_DTYPES = ("fp32", "bf16", "int8")
+
+
+def _p11_searches(torch, mesh, rows: dict, q, n_valid: dict, timed: bool) -> dict:
+    """The sharded searches of one rank over its shards (``rows``: dtype ->
+    shard, "int8" a (values, scales) pair): for each dtype Q=1 and Q=64 at
+    k=5, then fp32 Q=1 at k=300. Each search is one counted run (its pass-1
+    launches and bodies); with ``timed``, then its wall ms (median of 5, the
+    ranks in lockstep) and the gather-and-merge's alone."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.retrieval import sharded as S
+
+    out = {}
+    runs = [(d, Q, P11_K) for d in P11_DTYPES for Q in (1, 64)] + [("fp32", 1, 300)]
+    for dtype, Q, k in runs:
+        def search(dtype=dtype, Q=Q, k=k):
+            if dtype == "int8":
+                return S.sharded_topk_retrieve_q8(q[:Q], *rows["int8"], k, mesh, n_valid=n_valid[dtype])
+            return S.sharded_topk_retrieve(q[:Q], rows[dtype], k, mesh, n_valid=n_valid[dtype])
+
+        bodies = {n: dict(ops.KERNEL_WRAPPERS[n].bodies) for n in ("tilemax", "tilemax_sup", "tilemax_sup_q8")}
+        ops.reset_launch_counts()
+        s, i = search()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ran = {n: {b: ops.KERNEL_WRAPPERS[n].bodies[b] - v for b, v in bodies[n].items()
+                   if ops.KERNEL_WRAPPERS[n].bodies[b] != v} for n in bodies}
+        ran = {n: b for n, b in ran.items() if b}
+        body = "cuda_core" if Q == 1 else "mma"
+        if sum(counts[n] for n in ran) != 1 or len(ran) != 1 or list(ran.values())[0] != {body: 1}:
+            raise AssertionError(f"phase 11 {dtype} Q={Q} k={k}: pass 1 {counts}, bodies {ran}: one launch "
+                                 f"on the {body} body expected")
+        row = dict(scores=s.cpu(), ids=i.cpu(), counts=counts, bodies=ran)
+        if timed:
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                search()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            sl, il = s.clone(), i.long().clone()  # the merge alone, over this rank's own candidates
+            merges = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                S.merge_candidates(mesh, sl, il, k)
+                torch.cuda.synchronize()
+                merges.append((time.perf_counter() - t) * 1e3)
+            row.update(ms=statistics.median(walls), merge_ms=statistics.median(merges))
+        out[f"{dtype} Q={Q} k={k}"] = row
+    return out
+
+
+def _p11_rows(torch, mesh, d: str, R) -> tuple[dict, dict]:
+    """This rank's shards of phase 4's rows, read from ``d``: (a)'s fp32, (b)'s
+    bf16, and (a) quantized on the card (pad rows: zero values and scales)."""
+    from clip_lora_match_tpu_torch.parallel import pad_to_multiple
+
+    rows, n_valid = {}, {}
+    for dtype, name in (("fp32", "rows_a.npy"), ("bf16", "rows_b.npy")):
+        # this rank's rows of the whole index padded by pad_to_multiple,
+        # read from the file alone (the padded copy of the whole would cost
+        # every rank its size in host memory): the last shard's slice is
+        # padded to the shard's length, which puts the pad rows where
+        # shard_index(pad_to_multiple(whole)) puts them
+        whole = np.load(os.path.join(d, name), mmap_mode="r")
+        n_valid[dtype] = len(whole)
+        n = -(-len(whole) // mesh.n_data)
+        mine, _ = pad_to_multiple(np.ascontiguousarray(whole[mesh.rank * n:(mesh.rank + 1) * n]), n)
+        rows[dtype] = torch.from_numpy(mine).to(mesh.device)
+        del whole, mine
+    rows["bf16"] = rows["bf16"].view(torch.bfloat16)
+    n = rows["fp32"].shape[0]
+    local = min(max(n_valid["fp32"] - mesh.rank * n, 0), n)
+    vq, sc = R.quantize_index_int8(rows["fp32"])
+    sc[local:] = 0
+    rows["int8"], n_valid["int8"] = (vq, sc), n_valid["fp32"]
+    return rows, n_valid
+
+
+def _p11_negative(torch, mesh) -> dict:
+    """(b): 100,003 seeded rows that the query scores below 0, its 10 best
+    moved to the end (the last shard, beside the zero pad rows), padded over
+    the ranks: the sharded search a counted run; then rank 0 searches the
+    whole index (uncounted: the reference)."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+    from clip_lora_match_tpu_torch.parallel import pad_to_multiple
+    from clip_lora_match_tpu_torch.retrieval import sharded as S
+
+    rng = np.random.default_rng(SEED + 40)
+    q0 = rng.normal(size=512).astype(np.float32)
+    q0 /= np.linalg.norm(q0)
+    rows = (-q0 + rng.normal(0, 0.02, (P11_NEG_ROWS, 512))).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    order = np.argsort(-(rows @ q0), kind="stable")
+    rows = np.concatenate([rows[order[10:]], rows[order[:10]]])
+    q = torch.from_numpy(q0[None]).to(mesh.device)
+    padded, n_valid = pad_to_multiple(rows, mesh.n_data)
+    shard = S.shard_index(mesh, padded)
+    out = {"max_score": float((rows @ q0).max()), "n_valid": n_valid, "padded": padded.shape[0]}
+    ops.reset_launch_counts()
+    out["got"] = tuple(t.cpu() for t in S.sharded_topk_retrieve(q, shard, 10, mesh, n_valid=n_valid))
+    out["counts"] = ops.launch_counts()
+    # 41 such rows, the 10 best last: a shard has fewer tiles than the
+    # two-pass selection needs, so its search takes the oracle route, which
+    # must keep the zero pad rows out too
+    small = np.concatenate([rows[:31], rows[-10:]])
+    padded, nv = pad_to_multiple(small, mesh.n_data)
+    got = S.sharded_topk_retrieve(q, S.shard_index(mesh, padded), 10, mesh, n_valid=nv)
+    out["small"] = (got[1][0].tolist(), np.argsort(-(small @ q0), kind="stable")[:10].tolist())
+    if mesh.rank == 0:
+        out["whole"] = tuple(t.cpu() for t in R.topk_retrieve_twopass(q, torch.from_numpy(rows).cuda(), 10))
+    return out
+
+
+def _p11_dp_steps(torch, params, lora, arch, eot, batch, mesh) -> dict:
+    """(d): three B=128 steps (phase 9 (c) (ii): the trainer's flags, fp32,
+    dropout 0) from phase 3's adapter, data-parallel under ``mesh`` (this
+    rank's 64 rows) or in one process; then three more, timed."""
+    from clip_lora_match_tpu_torch.core.config import LoraConfig, TrainingConfig
+    from clip_lora_match_tpu_torch.models.io import tree_map
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+    from clip_lora_match_tpu_torch.parallel import shard_batch
+    from clip_lora_match_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
+
+    tcfg = TrainingConfig()
+    tx, _ = make_optimizer(tcfg, 1000)
+    placed = batch if mesh is None else shard_batch(mesh, batch)
+    with kernel_flags(fused_lora=False, small_attention=False, flash_attention=False):
+        step = make_train_step(params, arch, LoraConfig(dropout=0.0), tcfg, tx, eot_id=eot, mesh=mesh)
+        state = init_train_state(lora, tx, seed=42)
+        losses, norms = [], []
+        for _ in range(3):
+            state, m = step(state, placed)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+        final = tree_map(lambda t: t.detach().cpu(), state.lora)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, placed)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+    return dict(losses=losses, norms=norms, lora=final, ms=statistics.median(walls))
+
+
+def p11_rank_main(d: str, rank: int, world: int) -> int:
+    """One spawned rank of phase 11 (``chip_smoke.py --phase11-rank DIR RANK
+    WORLD``): join the world's gloo group through a file store in ``DIR``,
+    run the parts ``DIR/job.json`` names, save what they give to
+    ``DIR/rank{RANK}.pt``. The kernels were built by the parent: the rank
+    only loads them."""
+    import torch
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+    from clip_lora_match_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(d, "job.json")) as f:
+        job = json.load(f)
+    initialize_distributed(f"file://{os.path.join(d, 'store')}", world, rank, backend=job["backend"],
+                           timeout=P11_COLLECTIVE_S)
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        mesh = make_mesh()
+        out["device"] = str(mesh.device)
+        top = os.path.dirname(d)
+        t = time.perf_counter()
+        rows, n_valid = _p11_rows(torch, mesh, top, R)
+        q = torch.from_numpy(np.load(os.path.join(top, "queries.npy"))).to(mesh.device)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t
+        out["searches"] = _p11_searches(torch, mesh, rows, q, n_valid, timed=True)
+        del rows
+        torch.cuda.empty_cache()
+        out["negative"] = _p11_negative(torch, mesh)
+        if "build" in job["parts"]:
+            from clip_lora_match_tpu_torch.index import cli as index_cli
+
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            index_cli.run(["build-text", "--dist-backend", job["backend"], "--csv", job["csv"],
+                           "--weights", os.path.join(top, "base.npz"), "--lora", os.path.join(top, "lora"),
+                           "--out", os.path.join(top, "built2.npz")])
+            torch.cuda.synchronize()
+            out["build"] = dict(counts=ops.launch_counts(), s=time.perf_counter() - t)
+            torch.cuda.empty_cache()
+        if "train" in job["parts"]:
+            from clip_lora_match_tpu_torch.core.config import ClipArchConfig
+            from clip_lora_match_tpu_torch.lora.adapter import load_lora
+            from clip_lora_match_tpu_torch.models.io import load_params
+
+            params = load_params(os.path.join(top, "base.npz"), device=mesh.device)
+            lora, _ = load_lora(os.path.join(top, "lora"), device=mesh.device)
+            batch = dict(np.load(os.path.join(top, "train_batch.npz")))
+            ops.reset_launch_counts()
+            out["train"] = _p11_dp_steps(torch, params, lora, ClipArchConfig(), int(job["eot"]), batch, mesh)
+            out["train_counts"] = ops.launch_counts()
+        out["memory"] = f"{_host_memory()}, card peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB"
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    return 0
+
+
+def _p11_spawn(torch, tmp: str, name: str, world: int, job: dict) -> list:
+    """Start ``world`` ranks of this script (``--phase11-rank``), wait for
+    every one within P11_JOIN_S, and return their results; a rank that fails
+    or hangs fails the phase (its log's end in the error), and no rank is
+    left running."""
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    with open(os.path.join(d, "job.json"), "w") as f:
+        json.dump(job, f)
+    procs = []
+    try:
+        for r in range(world):
+            log_f = open(os.path.join(d, f"rank{r}.log"), "w")
+            procs.append((log_f, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase11-rank", d, str(r), str(world)],
+                cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT)))
+        deadline = time.monotonic() + P11_JOIN_S
+        for r, (_, p) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timed out"
+            if rc != 0:
+                with open(os.path.join(d, f"rank{r}.log")) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"phase 11 {name}: rank {r} {rc}:\n{tail}")
+    finally:
+        for log_f, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            log_f.close()
+    return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def _host_memory() -> str:
+    """This process's peak resident memory (VmHWM: its own, not a forking
+    parent's as getrusage's would be) and the host's available memory, each
+    "?" where the kernel does not report it."""
+    def field(path, key):
+        with open(path) as f:
+            kb = next((int(line.split()[1]) for line in f if line.startswith(key)), None)
+        return "?" if kb is None else f"{kb / 2 ** 20:.1f}"
+
+    return (f"peak RSS {field('/proc/self/status', 'VmHWM:')} GiB, host available "
+            f"{field('/proc/meminfo', 'MemAvailable:')} GiB")
+
+
+def _p11_same(torch, what, got, ref, tol) -> None:
+    """Scores within ``tol``; ids equal but inside a run of reference scores
+    tied within ``tol``, where the id must be one of the run's."""
+    (gs, gi), (rs, ri) = (t.cpu() for t in got), (t.cpu() for t in ref)
+    if gs.shape != rs.shape or not bool(((gs - rs).abs() <= tol).all()):
+        raise AssertionError(f"{what}: scores differ (max {float((gs - rs).abs().max()):.3e}, tol {tol})")
+    assert_ids_tie_aware(torch, what, gi.long(), rs, ri.long(), tol)
+
+
+def data_axis_path(torch, card, enc, texts, images) -> dict:
+    """Phase 11: (a) one NCCL rank (this process) over phase 4's rows; (b)
+    gloo worlds of 2 and 4 spawned ranks sharing the card; (c) the sharded
+    build at 2 ranks; (d) the data-parallel step at 2 ranks and train.cli
+    under torchrun. Returns the launches of the counted runs of every rank."""
+    import torch.distributed as dist
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import LoraConfig
+    from clip_lora_match_tpu_torch.index import cli as index_cli
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+    from clip_lora_match_tpu_torch.lora.adapter import load_lora, save_lora
+    from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+    from clip_lora_match_tpu_torch.parallel import all_gather, all_reduce_sum, initialize_distributed, make_mesh
+    from clip_lora_match_tpu_torch.retrieval import sharded as S
+    from clip_lora_match_tpu_torch.train import cli as train_cli
+
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for name, v in counts.items():
+            launches[name] += v
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p11_")
+    corpus = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "scripts", "generate_fashion_corpus.py"), "--out",
+         os.path.join(tmp, "fashion"), "--n-train", "0", "--n-val", str(EVAL_ROWS)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    torchrun = None
+    try:
+        # -- phase 4's rows and queries, the unsharded searches ------------------
+        t = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        noise = torch.randn(HBM_ROWS, enc.arch.projection_dim, device="cuda", generator=gen).cpu().numpy()
+        custom = np.concatenate([enc.encode_text(texts), enc.encode_image(images)])
+        emb_a = EmbeddingIndex(np.concatenate([noise, custom]), device="cuda").embeddings
+        np.save(os.path.join(tmp, "rows_a.npy"), emb_a.cpu().numpy())
+        emb_b = EmbeddingIndex(np.concatenate([noise[:BF16_ROWS], custom]), storage_dtype="bfloat16",
+                               device="cuda").embeddings
+        del noise
+        np.save(os.path.join(tmp, "rows_b.npy"), emb_b.view(torch.int16).cpu().numpy())
+        rng = np.random.default_rng(SEED + 4)
+        queries = np.concatenate([custom, rng.standard_normal((64 - len(custom), custom.shape[1]))]).astype(
+            np.float32)
+        np.save(os.path.join(tmp, "queries.npy"), queries)
+        q = torch.from_numpy(queries).cuda()
+        vq, sc = R.quantize_index_int8(emb_a)
+        whole = {"fp32": emb_a, "bf16": emb_b}
+        refs = {}
+        for dtype in P11_DTYPES:
+            for Q, k in ((1, P11_K), (64, P11_K)) + (((1, 300),) if dtype == "fp32" else ()):
+                key = f"{dtype} Q={Q} k={k}"
+                refs[key] = (R.topk_retrieve_q8(q[:Q], vq, sc, k) if dtype == "int8"
+                             else R.topk_retrieve_twopass(q[:Q], whole[dtype], k))
+        enc.save(os.path.join(tmp, "base.npz"))
+        save_lora(os.path.join(tmp, "lora"), enc.lora, LoraConfig())
+        eot = enc.preprocessor.tokenizer.eot_id
+        batch = train_batch(enc, TRAIN_B, 64, SEED + 21)
+        np.savez(os.path.join(tmp, "train_batch.npz"), **batch)
+        torch.cuda.synchronize()
+        log(f"phase 11 set-up: {time.perf_counter() - t:.1f} s (phase 4's rows written for the ranks: "
+            f"{len(emb_a)} fp32, {len(emb_b)} bf16; the unsharded searches); {_host_memory()}; card "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB reserved")
+
+        # -- (a) one NCCL rank on cuda:0 -----------------------------------------
+        t = time.perf_counter()
+        initialize_distributed(f"file://{os.path.join(tmp, 'nccl_store')}", 1, 0, backend="nccl",
+                               timeout=P11_COLLECTIVE_S)
+        try:
+            mesh = make_mesh()
+            x = torch.arange(6.0, device="cuda").reshape(2, 3)
+            g, s_ = all_gather(mesh, x), all_reduce_sum(mesh, x)
+            if not (torch.equal(g, x) and torch.equal(s_, x) and g.is_cuda and mesh.backend == "nccl"):
+                raise AssertionError(f"phase 11 (a) collectives: {g} {s_} {mesh.backend}")
+            rows = {"fp32": S.shard_index(mesh, emb_a), "bf16": S.shard_index(mesh, emb_b),
+                    "int8": S.shard_index_q8(mesh, vq, sc)}
+            n_valid = {dtype: len(emb_a) if dtype != "bf16" else len(emb_b) for dtype in P11_DTYPES}
+            one = _p11_searches(torch, mesh, rows, q, n_valid, timed=True)
+        finally:
+            dist.destroy_process_group()
+        del rows
+        for key, row in one.items():
+            add(row["counts"])
+            ref = refs[key]
+            if not (torch.equal(row["scores"], ref[0].cpu()) and torch.equal(row["ids"], ref[1].cpu())):
+                raise AssertionError(f"phase 11 (a) {key}: the 1-rank NCCL search differs from the unsharded one")
+        log(f"phase 11 (a) NCCL, 1 rank on {mesh.device}: all_gather and all_reduce of CUDA tensors; "
+            f"{len(one)} sharded searches bit-equal to phase 4's unsharded route "
+            f"({time.perf_counter() - t:.1f} s)")
+        del vq, sc, whole, emb_a, emb_b
+        torch.cuda.empty_cache()
+
+        # -- (b)-(d) gloo worlds of 2 and 4 ranks sharing the card ----------------
+        out = corpus.communicate(timeout=600)[0]
+        if corpus.returncode != 0:
+            raise AssertionError(f"phase 11: generate_fashion_corpus.py exited {corpus.returncode}: {out}")
+        csv = os.path.join(tmp, "fashion", "val_fashion_synth.csv")
+        worlds = {}
+        for world, parts in ((2, ["search", "build", "train"]), (4, ["search"])):
+            t = time.perf_counter()
+            worlds[world] = _p11_spawn(torch, tmp, f"gloo{world}", world, dict(
+                backend="gloo", parts=parts, csv=csv, eot=eot))
+            log(f"phase 11 gloo world of {world} ranks: {time.perf_counter() - t:.1f} s "
+                f"(rank 0 loaded its shards in {worlds[world][0]['load_s']:.1f} s; rank 0 "
+                f"{worlds[world][0]['memory']})")
+        table = {1: one}
+        for world, ranks in worlds.items():
+            table[world] = ranks[0]["searches"]
+            for r, res in enumerate(ranks):
+                if res["device"] != "cuda:0":
+                    raise AssertionError(f"phase 11 gloo{world} rank {r} on {res['device']}")
+                for key, row in res["searches"].items():
+                    add(row["counts"])
+                    tol = 0.0 if key.startswith("int8") else 1e-6
+                    _p11_same(torch, f"phase 11 (b) gloo{world} rank {r} {key}",
+                              (row["scores"], row["ids"]), refs[key], tol)
+                neg = res["negative"]
+                add(neg["counts"])
+                _p11_same(torch, f"phase 11 (b) gloo{world} rank {r} all-negative", neg["got"],
+                          ranks[0]["negative"]["whole"], 1e-6)
+                if not (neg["max_score"] < 0 and int(neg["got"][1].max()) < neg["n_valid"] < neg["padded"]):
+                    raise AssertionError(f"phase 11 (b) gloo{world} all-negative: {neg}")
+                if neg["small"][0] != neg["small"][1] or set(neg["small"][0]) != set(range(31, 41)):
+                    raise AssertionError(f"phase 11 (b) gloo{world} rank {r} 41 all-negative rows: "
+                                         f"ids {neg['small'][0]}, exact {neg['small'][1]}")
+            log(f"phase 11 (b) gloo, {world} ranks on cuda:0: every rank's {len(table[world])} searches "
+                f"tie-aware equal to (a)'s (scores within 1e-6, int8 exact); the all-negative index "
+                f"({P11_NEG_ROWS} rows padded to {ranks[0]['negative']['padded']}, its 10 best in the last "
+                f"shard) gives no pad id and the unsharded top 10, and so do 41 such rows, each shard "
+                f"on the oracle route")
+            for r, res in enumerate(ranks):
+                log(f"  rank {r} pass 1: " + json.dumps({key: row["bodies"] for key, row in res["searches"].items()}))
+        log(f"phase 11 search times by world size (wall ms of one search, median of 5 / gather-and-merge ms "
+            f"alone, rank 0; gloo ranks time-share one card: no measure of scaling) [{card}]:")
+        for key in one:
+            log(f"  {key}: " + "; ".join(f"{w} rank{'s' if w > 1 else ''} "
+                                        f"{'nccl' if w == 1 else 'gloo'} {table[w][key]['ms']:.3f} / "
+                                        f"{table[w][key]['merge_ms']:.3f}" for w in sorted(table)))
+
+        # -- (c) the sharded build against one process ---------------------------
+        ranks = worlds[2]
+        for r, res in enumerate(ranks):
+            c = res["build"]["counts"]
+            add(c)
+            if c["attention_small"] == 0 or c["lora_matmul"] == 0:
+                raise AssertionError(f"phase 11 (c) rank {r} build-text launches {c}")
+        t = time.perf_counter()
+        index_cli.run(["build-text", "--csv", csv, "--weights", os.path.join(tmp, "base.npz"),
+                       "--lora", os.path.join(tmp, "lora"), "--out", os.path.join(tmp, "built1.npz")])
+        one_s = time.perf_counter() - t
+        two = np.load(os.path.join(tmp, "built2.npz"))["embeddings"]
+        ref1 = np.load(os.path.join(tmp, "built1.npz"))["embeddings"]
+        cos = (two * ref1).sum(1) / (np.linalg.norm(two, axis=1) * np.linalg.norm(ref1, axis=1))
+        with open(os.path.join(tmp, "built2.json")) as f:
+            side = json.load(f)
+        if two.shape != ref1.shape or two.shape[0] != EVAL_ROWS or not cos.min() >= 0.99999:
+            raise AssertionError(f"phase 11 (c) sharded build: {two.shape} vs {ref1.shape}, min cosine {cos.min()}")
+        # self-retrieval: the 1-process build's first 64 rows as queries find
+        # their own rows of the sharded build first (or a row of the same text,
+        # or one scoring within 1e-5 of their own)
+        qs, built = torch.from_numpy(ref1[:64]).cuda(), torch.from_numpy(two).cuda()
+        top_s, top_i = R.topk_retrieve_auto(qs, built, 1)
+        own = (qs * built[:64]).sum(1)
+        misses = [j for j, g in enumerate(top_i[:, 0].tolist()) if g != j and side["texts"][g] != side["texts"][j]
+                  and float(own[j]) < float(top_s[j, 0]) - 1e-5]
+        if misses:
+            raise AssertionError(f"phase 11 (c) self-retrieval misses {misses}")
+        log(f"phase 11 (c) index.cli build-text at 2 gloo ranks over {EVAL_ROWS} rows: rows against the "
+            f"1-process build min cosine {cos.min():.7f}; 64 rows find their own rows first; launches a rank "
+            f"{json.dumps({k: v for k, v in ranks[0]['build']['counts'].items() if v})}; "
+            f"{ranks[0]['build']['s']:.1f} s a rank against {one_s:.1f} s in one process [{card}]")
+
+        # -- (d) the data-parallel step and train.cli under torchrun ---------------
+        lora, _ = load_lora(os.path.join(tmp, "lora"), device="cuda")
+        single = _p11_dp_steps(torch, enc.params, lora, enc.arch, eot, batch, None)
+        for r, res in enumerate(ranks):
+            dp = res["train"]
+            add(res["train_counts"])
+            for g, ref in zip(dp["losses"] + dp["norms"], single["losses"] + single["norms"]):
+                if not abs(g - ref) <= 1e-5 * abs(ref):
+                    raise AssertionError(f"phase 11 (d) rank {r}: loss / grad_norm {dp['losses']} {dp['norms']} "
+                                         f"vs {single['losses']} {single['norms']}")
+            worst = max(_normrel(torch, a, b) for (_, a), (_, b) in zip(_leaves(dp["lora"]), _leaves(single["lora"])))
+            if not worst <= 1e-5:
+                raise AssertionError(f"phase 11 (d) rank {r}: LoRA leaves within {worst:.3e} of one process")
+        log(f"phase 11 (d) B={TRAIN_B} fp32 step, 2 gloo ranks (64 rows a rank) on cuda:0 against one process: "
+            f"losses {[round(v, 6) for v in single['losses']]}, grad norms and every LoRA leaf within rel 1e-5; "
+            f"step {ranks[0]['train']['ms']:.2f} ms (2 ranks on one card, gloo) against {single['ms']:.2f} ms "
+            f"(one process): the cost of gloo on one card, not a data-parallel speed-up [{card}]")
+        for name in ("dp", "one"):  # dropout 0: the ranks' masks cannot match one process's
+            _train_yaml(os.path.join(tmp, f"{name}.yaml"), os.path.join(tmp, f"run_{name}"), 2, dropout=0.0)
+        t = time.perf_counter()
+        torchrun = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+             "-m", "clip_lora_match_tpu_torch.train.cli", "--config", os.path.join(tmp, "dp.yaml"),
+             "--weights", os.path.join(tmp, "base.npz"), "--dist-backend", "gloo"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        one_run = train_cli.run(["--config", os.path.join(tmp, "one.yaml"), "--weights",
+                                 os.path.join(tmp, "base.npz")])
+        tr_out, _ = torchrun.communicate(timeout=P11_JOIN_S)
+        tr_s = time.perf_counter() - t
+        if torchrun.returncode != 0:
+            raise AssertionError(f"phase 11 (d) torchrun train.cli exited {torchrun.returncode}:\n{tr_out[-4000:]}")
+        dp_dir, one_dir = os.path.join(tmp, "run_dp"), os.path.join(tmp, "run_one")
+        listing = sorted(os.listdir(dp_dir))
+        lines = [open(os.path.join(d_, "training_metrics.jsonl")).read().count("\n") for d_ in (dp_dir, one_dir)]
+        if listing != sorted(os.listdir(one_dir)) or lines[0] != lines[1] or tr_out.count("[train] done") != 1:
+            raise AssertionError(f"phase 11 (d) torchrun outputs {listing}, metrics lines {lines}, "
+                                 f"'done' printed {tr_out.count('[train] done')} times")
+        got_lora, _ = load_lora(os.path.join(dp_dir, "epoch_2"), device="cpu")
+        ref_lora, _ = load_lora(os.path.join(one_dir, "epoch_2"), device="cpu")
+        worst = max(_normrel(torch, a, b) for (_, a), (_, b) in zip(_leaves(got_lora), _leaves(ref_lora)))
+        if not worst <= 1e-5:
+            raise AssertionError(f"phase 11 (d) torchrun epoch_2 adapter within {worst:.3e} of one process")
+        log(f"phase 11 (d) torchrun --nproc-per-node 2 train.cli (gloo, batch 6, 2 epochs, dropout 0): only "
+            f"rank 0 wrote ({listing}, {lines[0]} metrics lines, as one process); its epoch_2 adapter within "
+            f"rel {worst:.3e} of the 1-process run's (final loss {one_run.train_losses[-1]:.5f}); "
+            f"{tr_s:.1f} s with the 1-process run beside it [{card}]")
+    finally:
+        for p in (corpus, torchrun):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("tilemax", "tilemax_sup", "tilemax_sup_q8", "attention_small", "lora_matmul"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 11: {name} was not launched ({launches})")
+    log(f"phase 11: launches of its counted runs (every rank) {json.dumps(launches)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _leaves(tree):
+    from clip_lora_match_tpu_torch.models.io import tree_leaves
+
+    return tree_leaves(tree)
+
+
 def main() -> int:
+    if "--phase11-rank" in sys.argv:  # a spawned rank of phase 11
+        i = sys.argv.index("--phase11-rank")
+        return p11_rank_main(sys.argv[i + 1], int(sys.argv[i + 2]), int(sys.argv[i + 3]))
     try:
         import torch
     except ImportError:
@@ -3282,14 +3824,14 @@ def main() -> int:
             files = (loader, *file_corpus(tmp7))
             log(f"phase 7 files: {len(files[1])} renders (224^2, quality 92) and {len(files[2])} "
                 f"photos (1200x1600, quality 90) written in {time.perf_counter() - t:.2f} s")
-        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8", "9"))
+        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8", "9", "10"))
         for name in OFF_BY_DEFAULT:
             counts[name] = l14[name]
         torch.cuda.empty_cache()
         crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
         if files is not None:
             image_files_path(torch, card, enc, files)
-        if stop_after in (None, "8", "9"):
+        if stop_after in (None, "8", "9", "10"):
             torch.cuda.empty_cache()
             w8a8_path(torch, card, enc, texts, images, index, lat3)
     finally:
@@ -3297,16 +3839,20 @@ def main() -> int:
             shutil.rmtree(tmp7, ignore_errors=True)
     bwd, train_counts = {}, {name: 0 for name in KERNELS}
     eval_counts = {name: 0 for name in KERNELS}
-    if stop_after in (None, "9"):
+    axis_counts = {name: 0 for name in KERNELS}
+    if stop_after in (None, "9", "10"):
         tmp9 = tempfile.mkdtemp(prefix="chip_smoke_p9_")
         try:
             torch.cuda.empty_cache()
             bwd, train_counts = training_path(torch, card, enc, texts, index, gen, tmp9)
-            if stop_after is None:
+            if stop_after != "9":
                 torch.cuda.empty_cache()
                 eval_counts = evaluation_path(torch, card, index, tmp9)
         finally:
             shutil.rmtree(tmp9, ignore_errors=True)
+    if stop_after is None:
+        torch.cuda.empty_cache()
+        axis_counts = data_axis_path(torch, card, enc, texts, images)
 
     table = []
     for name, (rows, worst) in results.items():
@@ -3325,6 +3871,8 @@ def main() -> int:
             "launches_phase9": train_counts[name],
             # phase 10's counted runs: run-all, evaluate-model (4,441 rows), similarity
             "launches_phase10": eval_counts[name],
+            # phase 11's counted runs, every rank: the sharded searches and the sharded build
+            "launches_phase11": axis_counts[name],
         })
         if name in bwd:  # phase 9 (a): the backward (plain fp32 products) at the fp32 image-tower shape
             b = bwd[name][0]

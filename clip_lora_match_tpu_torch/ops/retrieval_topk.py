@@ -586,12 +586,11 @@ def topk_retrieve_twopass(
     nt, extra, nv = _slack(N, tile, n_valid)
     k_sel = k + extra
     if nt < k_sel:  # fewer tiles than the selection needs: the oracle is exact
-        s, i = topk_retrieve_reference(queries, index, k)
-        if n_valid is not None:
-            s = torch.where(i < nv, s, torch.full_like(s, NEG_INF))
-            order = torch.argsort(-s, dim=1, stable=True)
-            s, i = s.gather(1, order), i.gather(1, order)
-        return s, i
+        # rows past n_valid are masked before the selection, so none takes a
+        # slot from a real row (the JAX package masks after its top-k)
+        sims = _normalize_div(queries) @ index.float().T
+        sims[:, nv:] = NEG_INF
+        return _sorted_topk(sims, k)
     if pallas_pass1 is None:
         pallas_pass1 = _kernel_pass1(queries)
     _check_group(group)

@@ -28,6 +28,16 @@ batches: the same trajectory as K calls of the single step (PyTorch runs
 eagerly, so chaining saves no dispatch here; it keeps the JAX package's
 interface and its per-step ``losses`` / ``grad_norms`` vectors). TF32 is not
 enabled anywhere: with ``compute_dtype`` None training runs in fp32.
+
+Under a data mesh (``parallel.mesh``; the JAX package's GSPMD step over a
+sharded batch) a step takes this rank's rows of the global batch
+(``shard_batch``): each rank runs its rows through the towers, takes its
+share of the global-batch InfoNCE (``clip_contrastive_loss_sharded``), and
+the LoRA gradients are summed over the ranks (one all-reduce); clipping,
+``MultiSteps`` and the logged ``grad_norm`` see the summed gradient, the
+logged loss is the global one, and AdamW runs the same on every rank. The
+dropout masks of rank r come from the (2r, 2r+1)th of 2n seeds drawn from
+the shared generator: per-rank masks, the generator the same everywhere.
 """
 
 from __future__ import annotations
@@ -47,7 +57,8 @@ from clip_lora_match_tpu_torch.core.config import (
 )
 from clip_lora_match_tpu_torch.models import clip as clip_model
 from clip_lora_match_tpu_torch.models.io import tree_leaves, tree_map, unflatten
-from clip_lora_match_tpu_torch.train.loss import clip_contrastive_loss
+from clip_lora_match_tpu_torch.parallel.mesh import all_reduce_sum
+from clip_lora_match_tpu_torch.train.loss import clip_contrastive_loss, clip_contrastive_loss_sharded
 
 Params = dict[str, Any]
 
@@ -269,8 +280,9 @@ def tree_device(tree) -> torch.device:
 
 
 def tower_features(params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, remat,
-                    generator: Optional[torch.Generator] = None):
-    """Both towers' features; LoRA dropout iff a generator is given. uint8
+                    generator: Optional[torch.Generator] = None, mesh=None):
+    """Both towers' features; LoRA dropout iff a generator is given (under
+    ``mesh``, this rank's pair of the ranks' seeds). uint8
     ``pixel_values`` (resized and cropped, not normalized) are normalized on
     the device in the JAX package's order: fp32, / 255, - mean, / std."""
     pix = batch["pixel_values"]
@@ -280,10 +292,9 @@ def tower_features(params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, r
     rate = lora_cfg.dropout if generator is not None else 0.0
     gens = (None, None)
     if generator is not None:
-        gens = tuple(
-            torch.Generator().manual_seed(s)
-            for s in torch.randint(0, 2 ** 62, (2,), generator=generator).tolist()
-        )
+        n, r = (1, 0) if mesh is None else (mesh.n_data, mesh.rank)
+        seeds = torch.randint(0, 2 ** 62, (2 * n,), generator=generator).tolist()
+        gens = tuple(torch.Generator().manual_seed(s) for s in seeds[2 * r:2 * r + 2])
     kw = dict(lora=lora, lora_scaling=lora_cfg.scaling, compute_dtype=compute_dtype,
               remat=remat, lora_dropout=rate)
     img = clip_model.encode_image_features(params, pix, arch, generator=gens[0], **kw)
@@ -292,6 +303,18 @@ def tower_features(params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, r
         eot_id=eot_id, generator=gens[1], **kw,
     )
     return img, txt
+
+
+def _loss(img, txt, temperature: float, mesh) -> torch.Tensor:
+    if mesh is None:
+        return clip_contrastive_loss(img, txt, temperature)
+    return clip_contrastive_loss_sharded(img, txt, mesh, temperature)
+
+
+def _sum_over_ranks(mesh, tensors) -> list:
+    """Every rank's tensors summed, in one all-reduce of their concatenation."""
+    flat = all_reduce_sum(mesh, torch.cat([t.reshape(-1) for t in tensors]))
+    return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def _clone_generator(gen: torch.Generator) -> torch.Generator:
@@ -310,13 +333,16 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool | str = False,
     unroll: int | bool = True,
+    mesh=None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``step(state, batch) -> (state, {"loss", "grad_norm"})``: forward,
     InfoNCE, the LoRA gradients by autograd, the optimizer update. The
     metrics are 0-dim device tensors (nothing waits for the device);
     ``grad_norm`` is the norm of this step's raw gradients. ``batch`` holds
-    numpy arrays or tensors; they go to the LoRA tree's device. ``unroll``
-    is accepted and has no effect."""
+    numpy arrays or tensors; they go to the LoRA tree's device. With
+    ``mesh`` the batch is this rank's rows (``parallel.shard_batch``) and the
+    step is the global batch's (module docstring). ``unroll`` is accepted
+    and has no effect."""
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         batch = batch_to_device(batch, tree_device(state.lora))
@@ -326,10 +352,13 @@ def make_train_step(
         lora = unflatten({path: t for (path, _), t in zip(pairs, live)})
         img, txt = tower_features(
             params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, remat,
-            gen if lora_cfg.dropout > 0 else None,
+            gen if lora_cfg.dropout > 0 else None, mesh,
         )
-        loss = clip_contrastive_loss(img, txt, train_cfg.temperature)
-        grads = unflatten({path: g for (path, _), g in zip(pairs, torch.autograd.grad(loss, live))})
+        loss = _loss(img, txt, train_cfg.temperature, mesh)
+        raw = torch.autograd.grad(loss, live)
+        if mesh is not None:  # the global loss and gradients, in one all-reduce
+            loss, *raw = _sum_over_ranks(mesh, [loss.detach(), *raw])
+        grads = unflatten({path: g for (path, _), g in zip(pairs, raw)})
         updates, opt_state = tx.update(grads, state.opt_state, state.lora)
         new = TrainState(apply_updates(state.lora, updates), opt_state, state.step + 1, gen)
         return new, {"loss": loss.detach(), "grad_norm": global_norm(grads)}
@@ -375,15 +404,18 @@ def make_eval_step(
     train_cfg: TrainingConfig,
     eot_id: Optional[int] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> Callable[[Params, dict], torch.Tensor]:
     """``step(lora, batch) -> loss``: the validation loss, no dropout, no
-    gradients (ref:train_lora.py:214-241)."""
+    gradients (ref:train_lora.py:214-241); with ``mesh``, of the global
+    batch whose rows of this rank ``batch`` holds."""
 
     def step(lora: Params, batch: dict) -> torch.Tensor:
         with torch.no_grad():
             batch = batch_to_device(batch, tree_device(lora))
             img, txt = tower_features(params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, False)
-            return clip_contrastive_loss(img, txt, train_cfg.temperature)
+            loss = _loss(img, txt, train_cfg.temperature, mesh)
+            return loss if mesh is None else all_reduce_sum(mesh, loss)
 
     return step
 

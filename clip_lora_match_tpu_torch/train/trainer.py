@@ -6,8 +6,20 @@ AdamW (lr 1e-4, wd 0.01) over the adapter only, warmup ratio 0.1 with linear
 decay, clip 1.0, symmetric InfoNCE at temperature 0.07, the running loss
 logged every ``logging_steps`` steps, a validation loss and the adapter
 (``output_dir/epoch_{k}``, native and PEFT) after every epoch; plus resume
-from the last checkpoint. It runs on one device, the card unless
-``device="cpu"``; the JAX package's data-parallel branch is not ported.
+from the last checkpoint. One process runs on one device, the card unless
+``device="cpu"``.
+
+In a process group of n ranks (``torchrun``, ``parallel.initialize_distributed``)
+training is data-parallel, as the JAX trainer's is over its devices:
+``batch_size`` is the global batch; every rank reads the same global batch
+(the same seed, the same augmenter stream) and keeps its rows
+(``parallel.shard_batch``) on its own device (``rank_device``); the base
+weights and the adapter are replicated (checked once); the step is the
+global batch's (``train.step``). Only the primary rank writes the metrics,
+the checkpoints and the ``epoch_k`` adapters; every rank restores from the
+checkpoint on resume. A ``batch_size`` that does not divide over the ranks
+logs a warning, and every rank then runs the single-process step on the
+whole batch.
 
 The augmenter draws one stream across the epochs, as the JAX trainer's
 does. An epoch reads exactly its ``steps_per_epoch`` batches (the prefetch
@@ -43,6 +55,8 @@ from clip_lora_match_tpu_torch.lora.peft_io import save_peft_adapter
 from clip_lora_match_tpu_torch.models.clip import init_params
 from clip_lora_match_tpu_torch.models.io import load_params, tree_map
 from clip_lora_match_tpu_torch.nn.layers import set_kernel_flags
+from clip_lora_match_tpu_torch.parallel.distributed import is_primary, process_count
+from clip_lora_match_tpu_torch.parallel.mesh import barrier, make_mesh, replicated, shard_batch
 from clip_lora_match_tpu_torch.preprocess.augment import ImageAugmenter
 from clip_lora_match_tpu_torch.tokenizer import ClipTokenizer
 from clip_lora_match_tpu_torch.train.checkpoint import CheckpointManager
@@ -82,7 +96,8 @@ def train(
     """Run the LoRA fine-tune. Programmatic arguments override the YAML.
     Without ``params`` or a ``weights_path`` that exists, the base is drawn
     at random from the training seed (``models.clip.init_params``)."""
-    dev = resolve_device(device)
+    mesh = make_mesh(device=device) if process_count() > 1 else None
+    dev = resolve_device(device) if mesh is None else mesh.device
     if lora_cfg is None or train_cfg is None:
         file_lora, file_train = load_lora_config(config_path)
         lora_cfg = lora_cfg or file_lora
@@ -126,13 +141,25 @@ def train(
     # a step slower; an encoder built earlier in this process may have set
     # the flags, and they come back in the finally below
     prev_flags = set_kernel_flags(fused_lora=False, flash_attention=False, small_attention=False)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        log.info("%d devices visible; training runs on %s alone", torch.cuda.device_count(), dev)
+
+    # data-parallel over the ranks of a process group (the JAX trainer's
+    # branch over its devices): batch_size is the global batch
+    dp = None
+    if mesh is not None:
+        params, lora = replicated(mesh, params), replicated(mesh, lora)
+        if train_cfg.batch_size % mesh.n_data:
+            log.warning("batch_size %d not divisible by %d ranks; every rank runs the single-process step",
+                        train_cfg.batch_size, mesh.n_data)
+        else:
+            dp = mesh
+            log.info("data-parallel over %d ranks (%s), this rank %d on %s", mesh.n_data, mesh.backend,
+                     mesh.rank, mesh.device)
+    primary = is_primary()
 
     state = init_train_state(lora, tx, seed=train_cfg.seed)
     step_kw = dict(eot_id=tokenizer.eot_id, remat=train_cfg.remat, unroll=train_cfg.scan_unroll)
-    train_step = make_train_step(params, arch, lora_cfg, train_cfg, tx, **step_kw)
-    eval_step = make_eval_step(params, arch, lora_cfg, train_cfg, eot_id=tokenizer.eot_id)
+    train_step = make_train_step(params, arch, lora_cfg, train_cfg, tx, mesh=dp, **step_kw)
+    eval_step = make_eval_step(params, arch, lora_cfg, train_cfg, eot_id=tokenizer.eot_id, mesh=dp)
 
     seq_slice = train_cfg.text_seq_slice or 0
     eot_id = tokenizer.eot_id
@@ -151,8 +178,14 @@ def train(
             b = dict(b, input_ids=ids[:, :seq_slice], attention_mask=mask[:, :seq_slice])
         return b
 
+    def place(b):
+        """Under data parallelism, this rank's rows on its device."""
+        return b if dp is None else shard_batch(dp, b)
+
     os.makedirs(train_cfg.output_dir, exist_ok=True)
-    metrics = MetricsWriter(metrics_path or os.path.join(train_cfg.output_dir, "training_metrics.jsonl"))
+    metrics = MetricsWriter(
+        (metrics_path or os.path.join(train_cfg.output_dir, "training_metrics.jsonl")) if primary else None
+    )
     ckpt = CheckpointManager(os.path.join(train_cfg.output_dir, "checkpoints"))
     start_epoch = 0
     if train_cfg.resume:
@@ -164,8 +197,10 @@ def train(
     try:
         _run_epochs(
             result, state, train_step, eval_step, train_ds, val_ds, train_cfg, lora_cfg,
-            steps_per_epoch, metrics, ckpt, start_epoch, time.time(), slice_batch,
+            steps_per_epoch, metrics, ckpt, start_epoch, time.time(), slice_batch, place, primary,
         )
+        if mesh is not None:  # the primary's files exist when any rank returns
+            barrier(mesh)
     finally:
         set_kernel_flags(**prev_flags)
         ckpt.close()
@@ -175,7 +210,7 @@ def train(
 
 def _run_epochs(
     result, state, train_step, eval_step, train_ds, val_ds, train_cfg, lora_cfg,
-    steps_per_epoch, metrics, ckpt, start_epoch, t0, slice_batch,
+    steps_per_epoch, metrics, ckpt, start_epoch, t0, slice_batch, place, primary,
 ):
     for epoch in range(start_epoch, train_cfg.num_epochs):
         # exactly this epoch's batches: the prefetch thread draws no
@@ -188,7 +223,7 @@ def _run_epochs(
         # device); they are read at the logging cadence
         pending: list = []
         for i, batch in enumerate(it, start=1):
-            state, m = train_step(state, slice_batch(batch))
+            state, m = train_step(state, place(slice_batch(batch)))
             pending.append(m["loss"])
             result.steps += 1
             # the running-loss cadence (ref:train_lora.py:204-211)
@@ -215,7 +250,7 @@ def _run_epochs(
             )
         if val_ds is not None and len(val_ds) >= train_cfg.batch_size:
             vlosses = [
-                float(eval_step(state.lora, b))
+                float(eval_step(state.lora, place(b)))
                 for b in batch_iterator(val_ds, train_cfg.batch_size, shuffle=False)
             ]
             vloss = float(np.mean(vlosses)) if vlosses else float("nan")
@@ -224,10 +259,11 @@ def _run_epochs(
             metrics.write("val", epoch=epoch + 1, loss=vloss)
 
         # per-epoch adapter directories, the reference's epoch_{k} naming
-        epoch_dir = os.path.join(train_cfg.output_dir, f"epoch_{epoch + 1}")
-        save_lora(epoch_dir, state.lora, lora_cfg)
-        save_peft_adapter(epoch_dir, state.lora, lora_cfg)
-        ckpt.save(int(state.step), state, epoch + 1, augmenter=train_ds.augmenter)
+        if primary:
+            epoch_dir = os.path.join(train_cfg.output_dir, f"epoch_{epoch + 1}")
+            save_lora(epoch_dir, state.lora, lora_cfg)
+            save_peft_adapter(epoch_dir, state.lora, lora_cfg)
+            ckpt.save(int(state.step), state, epoch + 1, augmenter=train_ds.augmenter)
         result.epochs = epoch + 1
 
     result.final_lora = tree_map(lambda t: t.detach().cpu(), state.lora)

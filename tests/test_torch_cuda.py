@@ -1521,3 +1521,101 @@ def test_evaluator_encode_launches_the_kernels_under_auto(gen):
     for got, want in zip(embs["cuda"], embs["cpu"]):
         assert got.shape == want.shape == (len(data.texts), 64)
         assert np.abs(got - want).max() <= 1e-4
+
+
+# -- the data axis on the card ---------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def data_axis_worlds(tmp_path_factory):
+    """One NCCL rank and two gloo ranks sharing the card, the sharded search
+    and the data-parallel step in each (``tests/_torch_dist.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import importlib.util
+    import os
+
+    # by path: a package named "tests" elsewhere on the path may shadow this directory
+    spec = importlib.util.spec_from_file_location(
+        "_torch_dist", os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dist.py"))
+    dist_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dist_mod)
+    run_worlds = dist_mod.run_worlds
+    tmp = tmp_path_factory.mktemp("data_axis")
+    _build.build_all()  # built once here: the ranks only load the libraries
+    out = {}
+    cards = torch.cuda.device_count()
+    for case in ("cuda_retrieval", "cuda_dp_step"):
+        out[case] = run_worlds({"nccl1": 1}, case, tmp / case, backend="nccl", device="cuda")
+        out[case].update(run_worlds({"gloo2": 2}, case, tmp / case, backend="gloo", device="cuda"))
+        if cards > 1:  # NCCL across cards, a card a rank
+            out[case].update(run_worlds({"nccl_cards": cards}, case, tmp / case, backend="nccl", device="cuda"))
+    return out
+
+
+def _world(worlds, case, world):
+    if world not in worlds[case]:
+        pytest.skip("NCCL across cards needs more than one card")
+    return worlds[case][world]
+
+
+def _tie_aware(got, ref, tol):
+    (gs, gi), (rs, ri) = got, ref
+    assert torch.allclose(gs, rs, atol=tol, rtol=0)
+    for q, j in (gi != ri).nonzero().tolist():
+        tied = (rs[q] - rs[q, j]).abs() <= tol
+        assert int(tied.sum()) > 1 and gi[q, j] in ri[q][tied]
+
+
+@pytest.mark.parametrize("world", ["nccl1", "gloo2", "nccl_cards"])
+@pytest.mark.parametrize("key", ["1/torch.float32", "1/torch.bfloat16", "1/int8", "64/torch.float32",
+                                 "64/torch.bfloat16", "64/int8"])
+def test_sharded_topk_on_cuda_equals_the_unsharded_search(data_axis_worlds, world, key):
+    ranks = _world(data_axis_worlds, "cuda_retrieval", world)
+    ref = data_axis_worlds["cuda_retrieval"]["nccl1"][0][f"{key}/whole"]
+    kernel = "tilemax_sup_q8" if key.endswith("int8") else "tilemax"
+    for res in ranks:
+        got, counts = res[key]
+        assert counts[kernel] >= 1, counts  # pass 1 ran on the kernel on every rank
+        if world == "nccl1":  # one rank: the same two-pass route, bit for bit
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        else:
+            _tie_aware(got, ref, 0.0 if key.endswith("int8") else 1e-6)
+
+
+@pytest.mark.parametrize("world", ["nccl1", "gloo2", "nccl_cards"])
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16", "int8"])
+def test_sharded_topk_on_cuda_keeps_pad_rows_out_of_small_shards(data_axis_worlds, world, dtype):
+    """41 rows that every query scores below 0, the 10 best of query 0 in the
+    padded last shard: the shards' oracle route keeps the zero pad rows out,
+    and the merged answer equals the unsharded search."""
+    for res in _world(data_axis_worlds, "cuda_retrieval", world):
+        got, ref = res[f"small/{dtype}"], res[f"small/{dtype}/whole"]
+        _tie_aware(got, ref, 0.0 if dtype == "int8" else 1e-6)
+        assert int(got[1].max()) < 41 and set(got[1][0].tolist()) == set(range(31, 41))
+
+
+@pytest.mark.parametrize("world", ["nccl1", "gloo2", "nccl_cards"])
+def test_dp_step_on_cuda_equals_the_single_step(data_axis_worlds, world):
+    from clip_lora_match_tpu_torch.models.io import tree_leaves
+
+    single = data_axis_worlds["cuda_dp_step"]["nccl1"][0]["single"]
+    ranks = _world(data_axis_worlds, "cuda_dp_step", world)
+    if world == "nccl_cards":  # a card a rank
+        assert [r["device"] for r in ranks] == [f"cuda:{i}" for i in range(len(ranks))]
+    for res in ranks:
+        losses, norms, lora = res["dp"]
+        for g, r in zip(losses + norms, single[0] + single[1]):
+            assert abs(g - r) <= 1e-5 * abs(r), (g, r)
+        for (path, a), (_, b) in zip(tree_leaves(lora), tree_leaves(single[2])):
+            assert ((a.double() - b.double()).norm() / b.double().norm()).item() <= 1e-5, path
+
+
+def test_nccl_refuses_ranks_that_share_a_card(gen, tmp_path):
+    from clip_lora_match_tpu_torch.parallel import initialize_distributed
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="gloo"):  # the last rank has no card of its own
+        initialize_distributed(f"file://{tmp_path}/store", n, n - 1, backend="nccl")
+    with pytest.raises(ValueError, match="gloo"):  # more ranks on this host than cards
+        initialize_distributed(f"file://{tmp_path}/store", n, 0, backend="nccl", local_world=n)

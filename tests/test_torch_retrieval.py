@@ -145,17 +145,24 @@ def test_twopass_matches_jax(Q, N, D, dtype, n_valid, pallas, group):
     index = _unit_rows(rng, N, D)
     queries = rng.normal(size=(Q, D)).astype(np.float32) * 3.0
     j_index, t_index = _both(index, dtype)
-    js, ji = J.topk_retrieve_twopass(
-        jnp.asarray(queries), j_index, 10, tile=16, n_valid=n_valid,
-        pallas_pass1=pallas, interpret=True, group=group,
-    )
+    if n_valid is not None and -(-N // 16) < 10:
+        # fewer tiles than k: the oracle route. The JAX package masks rows
+        # past n_valid after its top-k there, so one of them can take a slot
+        # from a real row; the port masks first and is held to the oracle
+        # over the valid rows.
+        js, ji = J.topk_retrieve_reference(jnp.asarray(queries), j_index[:n_valid], 10)
+    else:
+        js, ji = J.topk_retrieve_twopass(
+            jnp.asarray(queries), j_index, 10, tile=16, n_valid=n_valid,
+            pallas_pass1=pallas, interpret=True, group=group,
+        )
     ts, ti = T.topk_retrieve_twopass(
         torch.from_numpy(queries), t_index, 10, tile=16, n_valid=n_valid,
         pallas_pass1=pallas, group=group,
     )
     _same(js, ji, ts, ti)
-    if n_valid is not None:  # the tiny-N oracle leaves masked rows at NEG_INF
-        assert (ti[ts > T.NEG_INF] < n_valid).all()
+    if n_valid is not None:
+        assert (ti < n_valid).all()
 
 
 def test_twopass_fuzz_matches_jax():
