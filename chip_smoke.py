@@ -11,6 +11,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --stop-after 8         # phases 1-8 (an A/B without the training phase)
     python3 chip_smoke.py --stop-after 9         # phases 1-9 (an A/B without the evaluation phase)
     python3 chip_smoke.py --stop-after 10        # phases 1-10 (an A/B without the data axis)
+    python3 chip_smoke.py --stop-after 11        # phases 1-11 (an A/B without the model axes)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -169,7 +170,20 @@ Phases (any failure raises and exits non-zero):
    one process over 3 steps (losses, grad norms, LoRA leaves within rel
    1e-5) and its ms beside one process's, and torchrun --nproc-per-node 2
    of train.cli over the in-repo rows (batch 6, 2 epochs): only rank 0
-   writes, and its epoch_2 adapter is within rel 1e-5 of a 1-process run's.
+   writes, and its epoch_2 adapter is within rel 1e-5 of a 1-process run's;
+12. the model axes (tensor, sequence and pipeline parallelism) over gloo
+   worlds of 2 and 4 spawned ranks sharing cuda:0 (--phase12-rank), at full
+   ViT-B/32 width over phase 3's weights and adapter: (a) the serving encode
+   (image and text, B=8, bf16, kernels under "auto") through the TP, SP and
+   PP (M=4) executors in the world of 2 and a pp4 one (M=4) in the world of
+   4, every rank against the unsharded encode (cosine >= 0.999),
+   lora_matmul launched on every rank and attention_small on every TP and
+   PP rank; (b) the B=128 fp32 step of phase 9 (c) (ii) (dropout 0, 77-wide
+   text: SP's pad path) as tp2, sp2 and pp2 (M=4) in the world of 2 and
+   dp2×tp2, dp1×tp2×sp2 and pp2×sp2 (M=4) in the world of 4: each rank's
+   losses over 2 steps and LoRA tree after them within rel 1e-5 of one
+   process's, the step ms beside one process's, the collectives' count and
+   ms by axis, peak memory and launches by rank.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -3435,11 +3449,12 @@ def p11_rank_main(d: str, rank: int, world: int) -> int:
     return 0
 
 
-def _p11_spawn(torch, tmp: str, name: str, world: int, job: dict) -> list:
-    """Start ``world`` ranks of this script (``--phase11-rank``), wait for
-    every one within P11_JOIN_S, and return their results; a rank that fails
-    or hangs fails the phase (its log's end in the error), and no rank is
-    left running."""
+def _p11_spawn(torch, tmp: str, name: str, world: int, job: dict, flag: str = "--phase11-rank",
+               phase: str = "phase 11") -> list:
+    """Start ``world`` ranks of this script (``flag``: ``--phase11-rank`` or
+    ``--phase12-rank``), wait for every one within P11_JOIN_S, and return
+    their results; a rank that fails or hangs fails the phase (its log's end
+    in the error), and no rank is left running."""
     d = os.path.join(tmp, name)
     os.makedirs(d)
     with open(os.path.join(d, "job.json"), "w") as f:
@@ -3449,7 +3464,7 @@ def _p11_spawn(torch, tmp: str, name: str, world: int, job: dict) -> list:
         for r in range(world):
             log_f = open(os.path.join(d, f"rank{r}.log"), "w")
             procs.append((log_f, subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--phase11-rank", d, str(r), str(world)],
+                [sys.executable, os.path.abspath(__file__), flag, d, str(r), str(world)],
                 cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT)))
         deadline = time.monotonic() + P11_JOIN_S
         for r, (_, p) in enumerate(procs):
@@ -3460,7 +3475,7 @@ def _p11_spawn(torch, tmp: str, name: str, world: int, job: dict) -> list:
             if rc != 0:
                 with open(os.path.join(d, f"rank{r}.log")) as f:
                     tail = f.read()[-4000:]
-                raise AssertionError(f"phase 11 {name}: rank {r} {rc}:\n{tail}")
+                raise AssertionError(f"{phase} {name}: rank {r} {rc}:\n{tail}")
     finally:
         for log_f, p in procs:
             if p.poll() is None:
@@ -3726,6 +3741,308 @@ def data_axis_path(torch, card, enc, texts, images) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model axes (tensor, sequence, pipeline) over spawned ranks
+# ---------------------------------------------------------------------------
+
+P12_ENCODE_B = 8  # (a): the serving encode's batch, image and text
+P12_STEPS = 2  # checked steps a case, then as many timed
+# world -> cases: (name, kind, mesh arguments, "encode" or "step", microbatches)
+P12_CASES = {
+    2: [("tp2 encode", "tp", {"n_model": 2}, "encode", None),
+        ("sp2 encode", "sp", {"n_seq": 2}, "encode", None),
+        ("pp2 encode", "pp", {"n_stage": 2}, "encode", 4),
+        ("tp2 step", "tp", {"n_model": 2}, "step", None),
+        ("sp2 step", "sp", {"n_seq": 2}, "step", None),
+        ("pp2 step", "pp", {"n_stage": 2}, "step", 4)],
+    4: [("dp2xtp2 step", "tp", {"n_data": 2, "n_model": 2}, "step", None),
+        ("dp1xtp2xsp2 step", "sp", {"n_seq": 2, "n_model": 2}, "step", None),
+        ("pp2xsp2 step", "pp", {"n_stage": 2, "n_seq": 2}, "step", 4),
+        ("pp4 encode", "pp", {"n_stage": 4}, "encode", 4)],
+}
+
+
+def _p12_mesh(P, kind: str, axes: dict):
+    if kind == "tp":
+        return P.make_mesh(device="cuda", **axes)
+    if kind == "sp":
+        return P.make_sp_mesh(device="cuda", **axes)
+    return P.make_pp_mesh(device="cuda", **axes)
+
+
+def _p12_place(P, kind: str, mesh, params, lora, M):
+    """(params, lora, the state's splits, transformer_fn) for this rank."""
+    from clip_lora_match_tpu_torch.models.io import tree_map
+
+    if kind == "tp" or (kind == "sp" and mesh.size(P.MODEL_AXIS) > 1):
+        fn = P.make_tp_transformer(mesh) if kind == "tp" else P.make_sp_transformer(mesh)
+        sl = P.shard_lora_tp(lora, mesh)
+        return P.shard_params_tp(params, mesh), sl, P.lora_tp_pspecs(sl), fn
+    if kind == "sp":
+        return (P.shard_clip_sp(params, mesh), P.shard_clip_sp(lora, mesh), tree_map(lambda _: None, lora),
+                P.make_sp_transformer(mesh))
+    sl = P.shard_clip_pp(lora, mesh)
+    return P.shard_clip_pp(params, mesh), sl, P.clip_pp_pspecs(sl), P.make_pipeline_transformer(mesh, M)
+
+
+def _p12_encode(torch, P, kind, mesh, params, lora, scaling, arch, eot, inputs, M) -> dict:
+    """(a): the serving encode of both towers on this rank's shards, bf16,
+    the kernels under "auto"; its launches."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.models import clip as C
+
+    p, lo, _, fn = _p12_place(P, kind, mesh, params, lora, M)
+    pix = torch.from_numpy(inputs["pixels"]).cuda()
+    ids, am = (torch.from_numpy(inputs[k]).cuda() for k in ("input_ids", "attention_mask"))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        img = C.encode_image_features(p, pix, arch, lora=lo, lora_scaling=scaling, compute_dtype=torch.bfloat16,
+                                      transformer_fn=fn)
+        txt = C.encode_text_features(p, ids, arch, attention_mask=am, eot_id=eot, lora=lo, lora_scaling=scaling,
+                                     compute_dtype=torch.bfloat16, transformer_fn=fn)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = ops.launch_counts()
+    return dict(image=img.float().cpu(), text=txt.float().cpu(), counts=counts, ms=ms)
+
+
+def _p12_step(torch, P, kind, mesh, params, lora, arch, eot, batch, M) -> dict:
+    """(a), (b): the B=128 fp32 step (phase 9 (c) (ii): the trainer's flags,
+    dropout 0) on this rank's shards: P12_STEPS counted steps (losses, the
+    LoRA tree gathered whole, launches, peak memory), then P12_STEPS timed
+    ones (ms, the collectives by axis)."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import LoraConfig, TrainingConfig
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+    from clip_lora_match_tpu_torch.train.step import make_optimizer, make_train_step
+
+    p, lo, specs, fn = _p12_place(P, kind, mesh, params, lora, M)
+    tcfg = TrainingConfig()
+    tx, _ = make_optimizer(tcfg, 1000)
+    placed = P.shard_batch(mesh, batch)
+    with kernel_flags(fused_lora=False, small_attention=False, flash_attention=False):
+        step = make_train_step(p, arch, LoraConfig(dropout=0.0), tcfg, tx, eot_id=eot, mesh=mesh,
+                               transformer_fn=fn)
+        state = P.init_sharded_train_state(lo, tx, specs, seed=42)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses = []
+        for _ in range(P12_STEPS):
+            state, m = step(state, placed)
+            losses.append(m["loss"].item())
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        final = {k: v.cpu() for k, v in _leaves(P.gather_sharded(state.lora, specs, mesh))}
+        mesh.stats.clear()
+        walls = []
+        for _ in range(P12_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, placed)
+            m["loss"].item()
+            walls.append((time.perf_counter() - t) * 1e3)
+        stats = {axis: (calls / P12_STEPS, sec * 1e3 / P12_STEPS) for axis, (calls, sec) in mesh.stats.items()}
+    return dict(losses=losses, lora=final, counts=counts, peak_gib=peak, ms=statistics.median(walls),
+                collectives=stats)
+
+
+def p12_rank_main(d: str, rank: int, world: int) -> int:
+    """One spawned rank of phase 12 (``chip_smoke.py --phase12-rank DIR RANK
+    WORLD``): join the world's gloo group through a file store in ``DIR``,
+    run the cases ``DIR/job.json`` names (each on its own mesh), save what
+    they give to ``DIR/rank{RANK}.pt``. The kernels were built by the
+    parent: the rank only loads them."""
+    import torch
+
+    from clip_lora_match_tpu_torch import parallel as P
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig
+    from clip_lora_match_tpu_torch.lora.adapter import load_lora
+    from clip_lora_match_tpu_torch.models.io import load_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(d, "job.json")) as f:
+        job = json.load(f)
+    P.initialize_distributed(f"file://{os.path.join(d, 'store')}", world, rank, backend="gloo",
+                             timeout=P11_COLLECTIVE_S)
+    import torch.distributed as dist
+
+    out = {"cases": {}}
+    try:
+        top = os.path.dirname(d)
+        params = load_params(os.path.join(top, "base.npz"), device="cuda")
+        lora, scaling = load_lora(os.path.join(top, "lora"), device="cuda")
+        out["device"] = str(params["logit_scale"].device)
+        arch, eot = ClipArchConfig(), int(job["eot"])
+        inputs = dict(np.load(os.path.join(top, "encode_batch.npz")))
+        batch = dict(np.load(os.path.join(top, "train_batch.npz")))
+        for name, kind, axes, what, M in P12_CASES[world]:
+            mesh = _p12_mesh(P, kind, axes)
+            if what == "encode":
+                res = _p12_encode(torch, P, kind, mesh, params, lora, scaling, arch, eot, inputs, M)
+            else:
+                res = _p12_step(torch, P, kind, mesh, params, lora, arch, eot, batch, M)
+            out["cases"][name] = dict(res, coords=mesh.coords, shape=mesh.shape)
+            torch.cuda.empty_cache()
+        out["memory"] = _host_memory()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    return 0
+
+
+def _cos_min(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).min())
+
+
+def model_axes_path(torch, card, enc) -> dict:
+    """Phase 12: the model axes over gloo worlds of 2 and 4 spawned ranks
+    sharing the card, at full ViT-B/32 width (phase 3's weights and adapter):
+    (a) the serving encode (image and text, B=8, bf16, the kernels under
+    "auto") through the TP, SP and PP executors (world 2) and a pp4 one
+    (M=4, world 4), each rank's against the unsharded encode (cosine >=
+    0.999), lora_matmul launched on every rank and attention_small on every
+    TP and PP rank; (b) the B=128 fp32 step (phase 9 (c) (ii), dropout 0,
+    S=77 text: SP's pad path) as tp2, sp2, pp2 (M=4) in the world of 2 and
+    dp2×tp2, dp1×tp2×sp2, pp2×sp2 (M=4) in the world of 4, each rank's
+    losses over 2 steps and LoRA tree after them within rel 1e-5 of one
+    process's; the step ms, the collectives' count and ms by axis, the peak
+    memory and launches by rank. Returns the launches of every rank's
+    counted runs."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, LoraConfig
+    from clip_lora_match_tpu_torch.lora.adapter import load_lora, save_lora
+    from clip_lora_match_tpu_torch.models import clip as C
+    from clip_lora_match_tpu_torch.models.io import load_params
+
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in KERNELS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    try:
+        t = time.perf_counter()
+        enc.save(os.path.join(tmp, "base.npz"))
+        save_lora(os.path.join(tmp, "lora"), enc.lora, LoraConfig())
+        eot = enc.preprocessor.tokenizer.eot_id
+        batch = train_batch(enc, TRAIN_B, 77, SEED + 31)
+        np.savez(os.path.join(tmp, "train_batch.npz"), **batch)
+        text = train_batch(enc, P12_ENCODE_B, 77, SEED + 32)
+        rng = np.random.default_rng(SEED + 33)
+        pixels = rng.standard_normal((P12_ENCODE_B, 224, 224, 3)).astype(np.float32)
+        np.savez(os.path.join(tmp, "encode_batch.npz"), pixels=pixels, input_ids=text["input_ids"],
+                 attention_mask=text["attention_mask"])
+        # one process: the unsharded encode (bf16, "auto") and the step
+        arch = ClipArchConfig()
+        params = load_params(os.path.join(tmp, "base.npz"), device="cuda")
+        lora, scaling = load_lora(os.path.join(tmp, "lora"), device="cuda")
+        with torch.no_grad():
+            ref_img = C.encode_image_features(params, torch.from_numpy(pixels).cuda(), arch, lora=lora,
+                                              lora_scaling=scaling, compute_dtype=torch.bfloat16).float().cpu()
+            ref_txt = C.encode_text_features(
+                params, torch.from_numpy(text["input_ids"]).cuda(), arch,
+                attention_mask=torch.from_numpy(text["attention_mask"]).cuda(), eot_id=eot, lora=lora,
+                lora_scaling=scaling, compute_dtype=torch.bfloat16).float().cpu()
+        single = _p12_one_process(torch, params, lora, arch, eot, batch)
+        del params
+        torch.cuda.empty_cache()
+        log(f"phase 12 set-up: {time.perf_counter() - t:.1f} s (phase 3's weights and adapter written for the "
+            f"ranks; the one-process encode and B={TRAIN_B} step: {single['ms']:.2f} ms, peak "
+            f"{single['peak_gib']:.2f} GiB) [{card}]")
+
+        worlds = {}
+        for world in (2, 4):
+            t = time.perf_counter()
+            worlds[world] = _p11_spawn(torch, tmp, f"gloo{world}", world, dict(eot=eot), "--phase12-rank",
+                                       "phase 12")
+            log(f"phase 12 gloo world of {world} ranks: {time.perf_counter() - t:.1f} s (rank 0 "
+                f"{worlds[world][0]['memory']})")
+        for world, ranks in worlds.items():
+            for name, kind, axes, what, M in P12_CASES[world]:
+                for r, res in enumerate(ranks):
+                    if res["device"] != "cuda:0":
+                        raise AssertionError(f"phase 12 world {world} rank {r} on {res['device']}")
+                    got = res["cases"][name]
+                    for k, v in got["counts"].items():
+                        launches[k] += v
+                    if what == "encode":
+                        cos = min(_cos_min(got["image"], ref_img), _cos_min(got["text"], ref_txt))
+                        need = ["lora_matmul"] + (["attention_small"] if kind in ("tp", "pp") else [])
+                        missing = [k for k in need if got["counts"][k] == 0]
+                        if not cos >= 0.999 or missing:
+                            raise AssertionError(f"phase 12 {name} rank {r}: min cosine {cos:.6f} against the "
+                                                 f"unsharded encode, launches {got['counts']} (none of {missing})")
+                        got["cos"] = cos
+                        continue
+                    loss_rel = max(abs(g - ref) / abs(ref) for g, ref in zip(got["losses"], single["losses"],
+                                                                             strict=True))
+                    worst = max(_normrel(torch, got["lora"][k], single["lora"][k]) for k in single["lora"])
+                    if not (loss_rel <= 1e-5 and worst <= 1e-5):
+                        raise AssertionError(f"phase 12 {name} rank {r}: losses {got['losses']} against one "
+                                             f"process's {single['losses']} (rel {loss_rel:.3e}), LoRA tree "
+                                             f"within rel {worst:.3e}")
+                    got["worst"], got["loss_rel"] = worst, loss_rel
+                head = ranks[0]["cases"][name]
+                if what == "encode":
+                    log(f"phase 12 (a) {name} ({kind}, mesh {head['shape']}): every rank's image and text rows "
+                        f"against the unsharded bf16 encode, min cosine "
+                        f"{min(r['cases'][name]['cos'] for r in ranks):.6f}; {head['ms']:.2f} ms on rank 0 (first "
+                        f"call); launches by rank "
+                        + "; ".join(json.dumps({k: v for k, v in r['cases'][name]['counts'].items() if v})
+                                    for r in ranks) + f" [{card}]")
+                    continue
+                coll = "; ".join(f"{axis} {calls:.0f} calls {ms:.2f} ms" for axis, (calls, ms)
+                                 in sorted(head["collectives"].items()))
+                log(f"phase 12 (b) {name} (mesh {head['shape']}, B={TRAIN_B} fp32, {P12_STEPS} steps): losses "
+                    f"{[round(v, 6) for v in head['losses']]}, every rank's within rel "
+                    f"{max(r['cases'][name]['loss_rel'] for r in ranks):.2e} of one process's, LoRA within rel "
+                    f"{max(r['cases'][name]['worst'] for r in ranks):.2e}; step "
+                    f"{head['ms']:.2f} ms against {single['ms']:.2f} ms in one process (gloo ranks sharing one card: "
+                    f"no measure of scaling); collectives a step on rank 0: {coll}; peak GiB by rank "
+                    f"{[round(r['cases'][name]['peak_gib'], 2) for r in ranks]}; launches by rank "
+                    f"{[sum(r['cases'][name]['counts'].values()) for r in ranks]} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("attention_small", "lora_matmul"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 12: {name} was not launched ({launches})")
+    log(f"phase 12: launches of its counted runs (every rank) {json.dumps(launches)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _p12_one_process(torch, params, lora, arch, eot, batch) -> dict:
+    """The B=128 fp32 step of (b) in this process: P12_STEPS counted steps
+    (losses, the LoRA tree), then P12_STEPS timed."""
+    from clip_lora_match_tpu_torch.core.config import LoraConfig, TrainingConfig
+    from clip_lora_match_tpu_torch.nn.layers import kernel_flags
+    from clip_lora_match_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
+
+    tcfg = TrainingConfig()
+    tx, _ = make_optimizer(tcfg, 1000)
+    with kernel_flags(fused_lora=False, small_attention=False, flash_attention=False):
+        step = make_train_step(params, arch, LoraConfig(dropout=0.0), tcfg, tx, eot_id=eot)
+        state = init_train_state(lora, tx, seed=42)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for _ in range(P12_STEPS):
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        final = {k: v.cpu() for k, v in _leaves(state.lora)}
+        walls = []
+        for _ in range(P12_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            m["loss"].item()
+            walls.append((time.perf_counter() - t) * 1e3)
+    return dict(losses=losses, lora=final, peak_gib=peak, ms=statistics.median(walls))
+
+
 def _leaves(tree):
     from clip_lora_match_tpu_torch.models.io import tree_leaves
 
@@ -3736,6 +4053,9 @@ def main() -> int:
     if "--phase11-rank" in sys.argv:  # a spawned rank of phase 11
         i = sys.argv.index("--phase11-rank")
         return p11_rank_main(sys.argv[i + 1], int(sys.argv[i + 2]), int(sys.argv[i + 3]))
+    if "--phase12-rank" in sys.argv:  # a spawned rank of phase 12
+        i = sys.argv.index("--phase12-rank")
+        return p12_rank_main(sys.argv[i + 1], int(sys.argv[i + 2]), int(sys.argv[i + 3]))
     try:
         import torch
     except ImportError:
@@ -3824,14 +4144,14 @@ def main() -> int:
             files = (loader, *file_corpus(tmp7))
             log(f"phase 7 files: {len(files[1])} renders (224^2, quality 92) and {len(files[2])} "
                 f"photos (1200x1600, quality 90) written in {time.perf_counter() - t:.2f} s")
-        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8", "9", "10"))
+        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8", "9", "10", "11"))
         for name in OFF_BY_DEFAULT:
             counts[name] = l14[name]
         torch.cuda.empty_cache()
         crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
         if files is not None:
             image_files_path(torch, card, enc, files)
-        if stop_after in (None, "8", "9", "10"):
+        if stop_after in (None, "8", "9", "10", "11"):
             torch.cuda.empty_cache()
             w8a8_path(torch, card, enc, texts, images, index, lat3)
     finally:
@@ -3840,7 +4160,8 @@ def main() -> int:
     bwd, train_counts = {}, {name: 0 for name in KERNELS}
     eval_counts = {name: 0 for name in KERNELS}
     axis_counts = {name: 0 for name in KERNELS}
-    if stop_after in (None, "9", "10"):
+    model_counts = {name: 0 for name in KERNELS}
+    if stop_after in (None, "9", "10", "11"):
         tmp9 = tempfile.mkdtemp(prefix="chip_smoke_p9_")
         try:
             torch.cuda.empty_cache()
@@ -3850,9 +4171,12 @@ def main() -> int:
                 eval_counts = evaluation_path(torch, card, index, tmp9)
         finally:
             shutil.rmtree(tmp9, ignore_errors=True)
-    if stop_after is None:
+    if stop_after in (None, "11"):
         torch.cuda.empty_cache()
         axis_counts = data_axis_path(torch, card, enc, texts, images)
+    if stop_after is None:
+        torch.cuda.empty_cache()
+        model_counts = model_axes_path(torch, card, enc)
 
     table = []
     for name, (rows, worst) in results.items():
@@ -3873,6 +4197,8 @@ def main() -> int:
             "launches_phase10": eval_counts[name],
             # phase 11's counted runs, every rank: the sharded searches and the sharded build
             "launches_phase11": axis_counts[name],
+            # phase 12's counted runs, every rank: the TP / SP / PP serving encodes and sharded steps
+            "launches_phase12": model_counts[name],
         })
         if name in bwd:  # phase 9 (a): the backward (plain fp32 products) at the fp32 image-tower shape
             b = bwd[name][0]

@@ -130,12 +130,16 @@ def encode_image_features(
     lora_dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,
     unroll: int | bool = 1,
+    transformer_fn=None,
 ) -> torch.Tensor:
     """(B, H, W, 3) → (B, projection_dim) un-normalized image features.
 
     ``remat``, ``lora_dropout`` and ``generator`` go to ``nn.layers.transformer``
     (dropout only with a generator). ``unroll`` is the JAX package's scan
-    unroll, accepted and without effect: the layers run as a Python loop."""
+    unroll, accepted and without effect: the layers run as a Python loop.
+    ``transformer_fn``: another executor of the layer stack with
+    ``transformer``'s signature (without ``causal`` and ``key_lengths``):
+    the tensor, sequence and pipeline-parallel executors of ``parallel/``."""
     p = params["visual"]
     x = _patchify(pixel_values, arch.patch_size)
     x = linear(p["patch_embed"], x, compute_dtype=compute_dtype)
@@ -143,7 +147,7 @@ def encode_image_features(
     x = torch.cat([cls, x], dim=1)
     x = x + p["pos_embedding"].to(x.dtype)
     x = layer_norm(p["ln_pre"], x, arch.layer_norm_eps)
-    x = transformer(
+    x = (transformer_fn or transformer)(
         p["blocks"], x, arch.vision_heads,
         lora_blocks=None if lora is None else lora["visual"]["blocks"],
         lora_scaling=lora_scaling, eps=arch.layer_norm_eps,
@@ -177,6 +181,7 @@ def encode_text_features(
     lora_dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,
     unroll: int | bool = 1,
+    transformer_fn=None,
 ) -> torch.Tensor:
     """(B, S) int ids → (B, projection_dim) un-normalized text features.
 
@@ -184,8 +189,10 @@ def encode_text_features(
     ``ids == eot_id``; argmax of ids when ``eot_id`` is None).
     ``attention_mask`` rows must be suffix-padded; the structural
     description handed to the small attention kernel is causal + per-row key
-    lengths ``mask.sum(-1)``. ``remat``, ``lora_dropout``, ``generator``
-    and ``unroll`` as in ``encode_image_features``.
+    lengths ``mask.sum(-1)``. ``remat``, ``lora_dropout``, ``generator``,
+    ``unroll`` and ``transformer_fn`` as in ``encode_image_features``; an
+    alternate executor owns its mask semantics and is handed the additive
+    (B|1, 1, S, S) mask alone, never ``causal`` or ``key_lengths``.
     """
     p = params["text"]
     B, S = input_ids.shape
@@ -193,17 +200,22 @@ def encode_text_features(
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     x = x + p["pos_embedding"][:S].to(x.dtype)
-    # the small attention kernel rebuilds the mask from causal + key_lengths
-    mask = None if uses_small_attention(x, causal=True) else _text_mask(attention_mask, S, x.device)
-    key_lengths = (
-        None if attention_mask is None else attention_mask.to(torch.int32).sum(-1)
-    )
-    x = transformer(
+    if transformer_fn is None:
+        # the small attention kernel rebuilds the mask from causal + key_lengths
+        mask = None if uses_small_attention(x, causal=True) else _text_mask(attention_mask, S, x.device)
+        key_lengths = (
+            None if attention_mask is None else attention_mask.to(torch.int32).sum(-1)
+        )
+        run, extra = transformer, dict(causal=True, key_lengths=key_lengths)
+    else:
+        mask = _text_mask(attention_mask, S, x.device)
+        run, extra = transformer_fn, {}
+    x = run(
         p["blocks"], x, arch.text_heads, mask=mask,
         lora_blocks=None if lora is None else lora["text"]["blocks"],
         lora_scaling=lora_scaling, eps=arch.layer_norm_eps,
-        compute_dtype=compute_dtype, causal=True, key_lengths=key_lengths,
-        remat=remat, lora_dropout=lora_dropout, generator=generator,
+        compute_dtype=compute_dtype, remat=remat, lora_dropout=lora_dropout,
+        generator=generator, **extra,
     )
     x = layer_norm(p["ln_final"], x, arch.layer_norm_eps)
     if eot_id is None:

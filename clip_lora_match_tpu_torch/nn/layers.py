@@ -392,6 +392,7 @@ def attention(
     key_lengths: Optional[torch.Tensor] = None,
     lora_dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    core_attn_fn=None,
 ) -> torch.Tensor:
     """Multi-head self-attention with an optional additive mask.
 
@@ -408,10 +409,17 @@ def attention(
     plain branch: each adapter's input gets its own mask, drawn in the order
     q, k, v, out_proj, or q, k and v share one (``fused_lora_dropout``, all
     three adapted with one rank).
+
+    ``core_attn_fn(qh, kh, vh, mask) -> (B, S, H, hd)``, when given, replaces
+    the score → softmax → value core (small attention and flash included);
+    the projections dispatch as above. The projections may be narrower than
+    ``x`` (a tensor-parallel rank's heads): ``num_heads`` heads share the
+    q/k/v width.
     """
     B, S, D = x.shape
     H = num_heads
-    hd = D // H
+    Dp = (p["q_proj"]["kernel_q"] if "kernel_q" in p["q_proj"] else p["q_proj"]["kernel"]).shape[-1]
+    hd = Dp // H
     kw = dict(lora_scaling=lora_scaling, compute_dtype=compute_dtype,
               lora_dropout=lora_dropout, generator=generator)
     xc = x if compute_dtype is None else x.to(compute_dtype)
@@ -447,7 +455,7 @@ def attention(
         biases = [p[n].get("bias") for n in QKV]
         if any(b is not None for b in biases):
             parts = [
-                b if b is not None else torch.zeros(D, device=x.device) for b in biases
+                b if b is not None else torch.zeros(Dp, device=x.device) for b in biases
             ]
             qkv = qkv + torch.cat(parts).to(qkv.dtype)
         adapters = [_lora_get(lora, n) for n in QKV]
@@ -462,10 +470,10 @@ def attention(
             deltas = _QkvLoraShared.apply(
                 xc, a_cat, b_stk, generator, float(lora_scaling), float(lora_dropout)
             )
-            qkv = qkv + deltas.reshape(B, S, 3 * D).to(qkv.dtype)
+            qkv = qkv + deltas.reshape(B, S, 3 * Dp).to(qkv.dtype)
             adapters = [None, None, None]
         out = []
-        for lp, t in zip(adapters, qkv.split(D, dim=-1)):
+        for lp, t in zip(adapters, qkv.split(Dp, dim=-1)):
             if lp is not None:
                 t = t + _lora_delta(xc, lp, lora_scaling, lora_dropout, generator).to(qkv.dtype)
             out.append(t.to(x.dtype))
@@ -474,7 +482,9 @@ def attention(
     qh = q.reshape(B, S, H, hd)
     kh = k.reshape(B, S, H, hd)
     vh = v.reshape(B, S, H, hd)
-    if uses_small_attention(x, causal):
+    if core_attn_fn is not None:
+        ctx = core_attn_fn(qh, kh, vh, mask)
+    elif uses_small_attention(x, causal):
         from clip_lora_match_tpu_torch.ops.attention_small import attention_small
 
         if causal:
@@ -493,7 +503,7 @@ def attention(
             scores = scores + mask.float()
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh.float())
-    ctx = ctx.to(x.dtype).reshape(B, S, D)
+    ctx = ctx.to(x.dtype).reshape(B, S, Dp)
     return linear(p["out_proj"], ctx, _lora_get(lora, "out_proj"), **kw)
 
 
@@ -544,15 +554,16 @@ def transformer_block(
     key_lengths: Optional[torch.Tensor] = None,
     lora_dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    core_attn_fn=None,
 ) -> torch.Tensor:
     """Pre-LN residual block: LN → attn → +res; LN → MLP → +res. The
     attention's dropout masks are drawn from ``generator`` before the
-    MLP's."""
+    MLP's; ``core_attn_fn`` goes to ``attention``."""
     x = x + attention(
         p["attn"], layer_norm(p["ln_1"], x, eps), num_heads, mask=mask,
         lora=_lora_get(lora, "attn"), lora_scaling=lora_scaling,
         compute_dtype=compute_dtype, causal=causal, key_lengths=key_lengths,
-        lora_dropout=lora_dropout, generator=generator,
+        lora_dropout=lora_dropout, generator=generator, core_attn_fn=core_attn_fn,
     )
     x = x + mlp(
         p["mlp"], layer_norm(p["ln_2"], x, eps), lora=_lora_get(lora, "mlp"),
@@ -626,9 +637,11 @@ def transformer(
     remat: bool | str = False,
     lora_dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    core_attn_fn=None,
 ) -> torch.Tensor:
     """Run a layer stack: a Python loop over the leading layer axis.
-    ``blocks``/``lora_blocks`` are stacked trees or per-layer lists.
+    ``blocks``/``lora_blocks`` are stacked trees or per-layer lists;
+    ``core_attn_fn`` replaces every layer's attention core (``attention``).
 
     With LoRA dropout (``lora_dropout`` > 0, a ``generator`` and adapters)
     one seed a layer is drawn from ``generator`` first; each block seeds a
@@ -649,7 +662,7 @@ def transformer(
             return transformer_block(
                 blk, h, num_heads, mask=mask, lora=lb, lora_scaling=lora_scaling, eps=eps,
                 compute_dtype=compute_dtype, causal=causal, key_lengths=key_lengths,
-                lora_dropout=lora_dropout, generator=gen,
+                lora_dropout=lora_dropout, generator=gen, core_attn_fn=core_attn_fn,
             )
 
         x = _run_block(block_fn, x, remat)

@@ -38,6 +38,20 @@ the LoRA gradients are summed over the ranks (one all-reduce); clipping,
 logged loss is the global one, and AdamW runs the same on every rank. The
 dropout masks of rank r come from the (2r, 2r+1)th of 2n seeds drawn from
 the shared generator: per-rank masks, the generator the same everywhere.
+
+The model axes (``parallel/tp.py``, ``sp.py``, ``pp.py``) come in through
+``transformer_fn``, the executor of both towers' layer stacks, and the
+mesh's other axes; the state built by ``init_sharded_train_state`` carries
+the LoRA leaves' splits (``TrainState.specs``). InfoNCE's feature all-gather
+and the loss's sum run over the data axis alone: the model, seq and stage
+ranks of one data rank hold the same features. A gradient is summed over
+every axis whose ranks each hold a part of it: the data axis (other rows),
+the seq axis (other tokens) and, for a leaf the model axis does not split,
+the model axis (a replicated LoRA factor, a column-parallel ``a`` or a
+row-parallel ``b``, sees only this rank's heads or hidden units); never
+over the stage axis, whose ranks hold other layers. The global norm that
+clipping and the ``grad_norm`` metric read sums the squares of a split leaf
+over its axis and counts a replicated leaf once.
 """
 
 from __future__ import annotations
@@ -57,7 +71,7 @@ from clip_lora_match_tpu_torch.core.config import (
 )
 from clip_lora_match_tpu_torch.models import clip as clip_model
 from clip_lora_match_tpu_torch.models.io import tree_leaves, tree_map, unflatten
-from clip_lora_match_tpu_torch.parallel.mesh import all_reduce_sum
+from clip_lora_match_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, STAGE_AXIS, all_reduce_sum
 from clip_lora_match_tpu_torch.train.loss import clip_contrastive_loss, clip_contrastive_loss_sharded
 
 Params = dict[str, Any]
@@ -68,12 +82,15 @@ class TrainState:
     """``lora``: fp32 tensors on the training device; ``opt_state``: the
     optimizer's nested dicts (tensors and int counters); ``step``: optimizer
     calls so far; ``generator``: the CPU generator the dropout seeds are
-    drawn from. A step returns a new state and leaves its input as it was."""
+    drawn from; ``specs``: the LoRA leaves' splits over the mesh
+    (``parallel.mesh.Split`` or None, a tree like ``lora``), None where every
+    leaf is whole. A step returns a new state and leaves its input as it was."""
 
     lora: Params
     opt_state: Any
     step: int
     generator: torch.Generator
+    specs: Any = None
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -146,8 +163,8 @@ class ClipByGlobalNorm:
     def init(self, params) -> dict:
         return {}
 
-    def update(self, grads, state, params=None):
-        norm = global_norm(grads)
+    def update(self, grads, state, params=None, norm=global_norm):
+        norm = norm(grads)
         keep = norm < self.max_norm
         return tree_map(lambda t: torch.where(keep, t, t / norm * self.max_norm), grads), state
 
@@ -167,7 +184,7 @@ class AdamW:
         return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "schedule_count": 0}
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, norm=global_norm):
         b1, b2 = self.b1, self.b2
         count = state["count"] + 1
         mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
@@ -192,10 +209,10 @@ class Chain:
     def init(self, params) -> list:
         return [t.init(params) for t in self.transforms]
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, norm=global_norm):
         new = []
         for t, s in zip(self.transforms, state):
-            grads, s = t.update(grads, s, params)
+            grads, s = t.update(grads, s, params, norm=norm)
             new.append(s)
         return grads, new
 
@@ -213,12 +230,12 @@ class MultiSteps:
         return {"mini_step": 0, "gradient_step": 0, "inner": self.inner.init(params),
                 "acc": tree_map(lambda t: torch.zeros_like(t, dtype=torch.float32), params)}
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, norm=global_norm):
         n = state["mini_step"]
         acc = tree_map(lambda g, a: a + (g - a) / _scalar(n + 1, a), grads, state["acc"])
         if n != self.k - 1:
             return None, {**state, "mini_step": n + 1, "acc": acc}
-        updates, inner = self.inner.update(acc, state["inner"], params)
+        updates, inner = self.inner.update(acc, state["inner"], params, norm=norm)
         return updates, {"mini_step": 0, "gradient_step": state["gradient_step"] + 1,
                          "inner": inner, "acc": tree_map(torch.zeros_like, acc)}
 
@@ -280,9 +297,10 @@ def tree_device(tree) -> torch.device:
 
 
 def tower_features(params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, remat,
-                    generator: Optional[torch.Generator] = None, mesh=None):
+                    generator: Optional[torch.Generator] = None, mesh=None, transformer_fn=None):
     """Both towers' features; LoRA dropout iff a generator is given (under
-    ``mesh``, this rank's pair of the ranks' seeds). uint8
+    ``mesh``, this data rank's pair of the data ranks' seeds);
+    ``transformer_fn`` runs both towers' layer stacks. uint8
     ``pixel_values`` (resized and cropped, not normalized) are normalized on
     the device in the JAX package's order: fp32, / 255, - mean, / std."""
     pix = batch["pixel_values"]
@@ -296,7 +314,7 @@ def tower_features(params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, r
         seeds = torch.randint(0, 2 ** 62, (2 * n,), generator=generator).tolist()
         gens = tuple(torch.Generator().manual_seed(s) for s in seeds[2 * r:2 * r + 2])
     kw = dict(lora=lora, lora_scaling=lora_cfg.scaling, compute_dtype=compute_dtype,
-              remat=remat, lora_dropout=rate)
+              remat=remat, lora_dropout=rate, transformer_fn=transformer_fn)
     img = clip_model.encode_image_features(params, pix, arch, generator=gens[0], **kw)
     txt = clip_model.encode_text_features(
         params, batch["input_ids"], arch, attention_mask=batch.get("attention_mask"),
@@ -306,15 +324,57 @@ def tower_features(params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, r
 
 
 def _loss(img, txt, temperature: float, mesh) -> torch.Tensor:
-    if mesh is None:
+    if mesh is None or mesh.n_data == 1:
         return clip_contrastive_loss(img, txt, temperature)
     return clip_contrastive_loss_sharded(img, txt, mesh, temperature)
 
 
-def _sum_over_ranks(mesh, tensors) -> list:
-    """Every rank's tensors summed, in one all-reduce of their concatenation."""
-    flat = all_reduce_sum(mesh, torch.cat([t.reshape(-1) for t in tensors]))
+def _sum_over_ranks(mesh, tensors, axis: str) -> list:
+    """Every ``axis`` rank's tensors summed, in one all-reduce of their
+    concatenation."""
+    flat = all_reduce_sum(mesh, torch.cat([t.reshape(-1) for t in tensors]), axis)
     return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _split_of(specs, paths) -> list:
+    """Each path's ``Split`` (None: whole) under ``specs``."""
+    if specs is None:
+        return [None] * len(paths)
+    table = dict(tree_leaves(specs))
+    return [table[p] for p in paths]
+
+
+def _reduce(mesh, loss, raw: list, splits: list) -> tuple:
+    """The global loss and gradients from this rank's (module docstring):
+    the loss over the data axis; each gradient over the data and seq axes,
+    and over the model axis unless the model axis splits it."""
+    if mesh.n_data > 1:
+        loss, *raw = _sum_over_ranks(mesh, [loss, *raw], DATA_AXIS)
+    for axis in (SEQ_AXIS, MODEL_AXIS):
+        if mesh.size(axis) > 1:
+            idx = [i for i, sp in enumerate(splits) if sp is None or sp.axis != axis]
+            if idx:
+                for i, g in zip(idx, _sum_over_ranks(mesh, [raw[i] for i in idx], axis)):
+                    raw[i] = g
+    return loss, raw
+
+
+def sharded_global_norm(mesh, specs):
+    """The global norm of a gradient tree whose leaves are split by
+    ``specs``: a split leaf's squares summed over its axis, a whole leaf's
+    counted once. One all-reduce a split axis."""
+
+    def norm(tree) -> torch.Tensor:
+        pairs = tree_leaves(tree)
+        splits = _split_of(specs, [p for p, _ in pairs])
+        whole = sum(t.float().square().sum() for (_, t), sp in zip(pairs, splits) if sp is None)
+        for axis in sorted({sp.axis for sp in splits if sp is not None}):
+            part = sum(t.float().square().sum() for (_, t), sp in zip(pairs, splits)
+                       if sp is not None and sp.axis == axis)
+            whole = whole + all_reduce_sum(mesh, part.reshape(1), axis)[0]
+        return torch.sqrt(whole)
+
+    return norm
 
 
 def _clone_generator(gen: torch.Generator) -> torch.Generator:
@@ -334,35 +394,50 @@ def make_train_step(
     remat: bool | str = False,
     unroll: int | bool = True,
     mesh=None,
+    transformer_fn=None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``step(state, batch) -> (state, {"loss", "grad_norm"})``: forward,
     InfoNCE, the LoRA gradients by autograd, the optimizer update. The
     metrics are 0-dim device tensors (nothing waits for the device);
     ``grad_norm`` is the norm of this step's raw gradients. ``batch`` holds
     numpy arrays or tensors; they go to the LoRA tree's device. With
-    ``mesh`` the batch is this rank's rows (``parallel.shard_batch``) and the
-    step is the global batch's (module docstring). ``unroll`` is accepted
-    and has no effect."""
+    ``mesh`` the batch is this data rank's rows (``parallel.shard_batch``)
+    and the step is the global batch's (module docstring);
+    ``transformer_fn`` runs both towers' layer stacks (the model axes'
+    executors), ``params`` and the state's LoRA tree are then this rank's
+    shards. ``step.loss_and_grads(lora, batch, specs)`` gives the global
+    loss and gradients (this rank's shard of each) without an update. ``unroll`` is
+    accepted and has no effect."""
 
-    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        batch = batch_to_device(batch, tree_device(state.lora))
-        gen = _clone_generator(state.generator)
-        pairs = tree_leaves(state.lora)
+    def loss_and_grads(lora_tree, batch, specs=None, generator=None):
+        batch = batch_to_device(batch, tree_device(lora_tree))
+        pairs = tree_leaves(lora_tree)
         live = [t.detach().requires_grad_(True) for _, t in pairs]
         lora = unflatten({path: t for (path, _), t in zip(pairs, live)})
         img, txt = tower_features(
             params, lora, batch, arch, lora_cfg, eot_id, compute_dtype, remat,
-            gen if lora_cfg.dropout > 0 else None, mesh,
+            generator if lora_cfg.dropout > 0 else None, mesh, transformer_fn,
         )
         loss = _loss(img, txt, train_cfg.temperature, mesh)
-        raw = torch.autograd.grad(loss, live)
-        if mesh is not None:  # the global loss and gradients, in one all-reduce
-            loss, *raw = _sum_over_ranks(mesh, [loss.detach(), *raw])
-        grads = unflatten({path: g for (path, _), g in zip(pairs, raw)})
-        updates, opt_state = tx.update(grads, state.opt_state, state.lora)
-        new = TrainState(apply_updates(state.lora, updates), opt_state, state.step + 1, gen)
-        return new, {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        raw = list(torch.autograd.grad(loss, live))
+        loss = loss.detach()
+        if mesh is not None:
+            loss, raw = _reduce(mesh, loss, raw, _split_of(specs, [p for p, _ in pairs]))
+        return loss, unflatten({path: g for (path, _), g in zip(pairs, raw)})
 
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        gen = _clone_generator(state.generator)
+        split = mesh is not None and (mesh.size(MODEL_AXIS) > 1 or mesh.size(STAGE_AXIS) > 1)
+        if split and state.specs is None:
+            raise ValueError("the model and stage axes split the LoRA tree: build the state with "
+                             "init_tp_train_state / init_pp_train_state (parallel/)")
+        loss, grads = loss_and_grads(state.lora, batch, state.specs, gen)
+        norm = global_norm if state.specs is None else sharded_global_norm(mesh, state.specs)
+        updates, opt_state = tx.update(grads, state.opt_state, state.lora, norm=norm)
+        new = TrainState(apply_updates(state.lora, updates), opt_state, state.step + 1, gen, state.specs)
+        return new, {"loss": loss, "grad_norm": norm(grads)}
+
+    step.loss_and_grads = loss_and_grads
     return step
 
 

@@ -329,7 +329,7 @@ def parallel_rank(mesh, d: Path) -> dict:
     local = {k: v[mesh.rank * 4:(mesh.rank + 1) * 4] for k, v in batch.items()}
     out["from_local"] = {k: v.numpy() for k, v in P.global_batch_from_local(mesh, local).items()}
     for what, fn in (("shard_batch_ragged", lambda: P.shard_batch(mesh, {"x": np.zeros((7, 2))})),
-                     ("model_axis", lambda: P.make_mesh(n_model=2, device="cpu")),
+                     ("model_axis", lambda: P.make_mesh(n_model=3, device="cpu")),
                      ("n_data_mismatch", lambda: P.make_mesh(n_data=mesh.n_data + 1, device="cpu")),
                      ("unequal_locals", lambda: P.global_batch_from_local(
                          mesh, {"x": np.zeros((2 + mesh.rank, 3))}))):
@@ -338,6 +338,8 @@ def parallel_rank(mesh, d: Path) -> dict:
             out[what] = None
         except (ValueError, NotImplementedError) as e:
             out[what] = f"{type(e).__name__}: {e}"
+    model = P.make_mesh(n_model=2, device="cpu")
+    out["model_mesh"] = (model.axis_names, model.axis_sizes, model.coords)
     tree = {"a": {"w": torch.arange(6.0).reshape(2, 3)}, "b": [torch.ones(2, dtype=torch.int64)]}
     out["replicated"] = P.replicated(mesh, tree)["a"]["w"]
     try:
@@ -555,8 +557,297 @@ def cuda_dp_step_rank(mesh, d: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the model axes: inputs drawn with numpy, the same in the ranks and in the
+# test process
+# ---------------------------------------------------------------------------
+
+NEG = float(np.finfo(np.float32).min)
+
+
+def numpy_blocks(seed: int, layers: int, width: int, mlp_dim: int) -> dict:
+    """A stacked block tree (the JAX package's layout), every bias drawn
+    too: a row-parallel bias added twice would show."""
+    rng = np.random.default_rng(seed)
+
+    def lin(d_in, d_out, std):
+        return {"kernel": (rng.normal(size=(layers, d_in, d_out)) * std).astype(np.float32),
+                "bias": (rng.normal(size=(layers, d_out)) * 0.02).astype(np.float32)}
+
+    def ln():
+        return {"scale": (1 + 0.1 * rng.normal(size=(layers, width))).astype(np.float32),
+                "bias": (0.05 * rng.normal(size=(layers, width))).astype(np.float32)}
+
+    w = width ** -0.5
+    return {"ln_1": ln(), "attn": {n: lin(width, width, w) for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "ln_2": ln(), "mlp": {"fc1": lin(width, mlp_dim, (2 * width) ** -0.5),
+                                  "fc2": lin(mlp_dim, width, mlp_dim ** -0.5)}}
+
+
+def numpy_lora_blocks(seed: int, layers: int, width: int, r: int = 4) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"attn": {n: {"a": (rng.normal(size=(layers, width, r)) * width ** -0.5).astype(np.float32),
+                         "b": (rng.normal(size=(layers, r, width)) * 0.05).astype(np.float32)}
+                     for n in ("q_proj", "k_proj", "v_proj", "out_proj")}}
+
+
+def text_mask(B: int, S: int, cut: int) -> np.ndarray:
+    """The text tower's additive causal mask with keys from ``cut`` on
+    padded away, (B, 1, S, S) (-inf where both add, as in both packages)."""
+    causal = np.triu(np.full((S, S), NEG, np.float32), k=1)[None, None]
+    am = np.ones((B, S), np.float32)
+    am[:, cut:] = 0
+    with np.errstate(over="ignore"):
+        return (causal + ((1.0 - am)[:, None, None, :] * NEG)).astype(np.float32)
+
+
+def ring_inputs(n_seq: int) -> dict:
+    """name -> (q, k, v, mask or None): dense, causal, and a batch mask with
+    fully masked query rows (the JAX package's ring tests)."""
+    rng = np.random.default_rng(20 + n_seq)
+    B, S, H, hd = 2, 16, 2, 8
+    q, k, v = (rng.normal(size=(B, S, H, hd)).astype(np.float32) for _ in range(3))
+    floor = np.float32(-3.4e38)
+    rows = np.zeros((B, 1, S, S), np.float32)
+    rows[:, :, :, 12:] = floor
+    rows[:, :, 12:, :] = floor
+    causal = np.triu(np.full((S, S), NEG, np.float32), k=1)[None, None]
+    return {"dense": (q, k, v, None), "causal": (q, k, v, causal), "masked_rows": (q, k, v, rows)}
+
+
+# the executors' inputs: (width, heads, mlp) 64 / 4 / 128, batch 8
+EXEC = dict(width=64, heads=4, mlp=128)
+
+
+def sp_inputs() -> dict:
+    """name -> (x, mask or None, with LoRA): S = 16 and the pad path S = 10
+    dense; S = 13 with a causal + row-pad mask and LoRA; S = 13 with a
+    broadcast (B, 1, 1, S) key mask."""
+    rng = np.random.default_rng(30)
+    x = {S: rng.normal(size=(8, S, EXEC["width"])).astype(np.float32) for S in (16, 10, 13)}
+    keep = rng.random((8, 1, 1, 13)) < 0.8
+    keep[..., 0] = True
+    return {"dense16": (x[16], None, False), "dense10": (x[10], None, False),
+            "causal13": (x[13], text_mask(8, 13, 9), True),
+            "keymask13": (x[13], np.where(keep, 0.0, NEG).astype(np.float32), False)}
+
+
+def pp_inputs() -> dict:
+    """name -> (x, mask or None): S = 8 with a batch mask (pipeline alone);
+    S = 16 and 13 with the causal + row-pad mask (pp×sp)."""
+    rng = np.random.default_rng(40)
+    x8 = rng.normal(size=(8, 8, EXEC["width"])).astype(np.float32)
+    keep = rng.random((8, 1, 1, 8)) < 0.75
+    keep[..., 0] = True
+    return {"batch8": (x8, np.where(keep, 0.0, NEG).astype(np.float32)),
+            "causal16": (rng.normal(size=(8, 16, EXEC["width"])).astype(np.float32), text_mask(8, 16, 11)),
+            "causal13": (rng.normal(size=(8, 13, EXEC["width"])).astype(np.float32), text_mask(8, 13, 9))}
+
+
+def _t(tree):
+    import torch
+
+    from clip_lora_match_tpu_torch.models.io import tree_map
+
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)), tree)
+
+
+def _executor_run(fn, blocks, x, mask, lora_blocks, heads, rows: slice) -> tuple:
+    """The executor's output on this data rank's rows, and the LoRA blocks'
+    gradients of the sum of its squares (this rank's share; the test sums
+    or gathers them), the LoRA blocks as given (shards)."""
+    import torch
+
+    from clip_lora_match_tpu_torch.models.io import tree_leaves, unflatten
+
+    live = None
+    if lora_blocks is not None:
+        pairs = tree_leaves(lora_blocks)
+        live = [t.detach().clone().requires_grad_(True) for _, t in pairs]
+        lora_blocks = unflatten({p: t for (p, _), t in zip(pairs, live)})
+    xt = torch.from_numpy(x[rows])
+    mt = None if mask is None else torch.from_numpy(mask[rows] if mask.shape[0] > 1 else mask)
+    out = fn(blocks, xt, heads, mask=mt, lora_blocks=lora_blocks, lora_scaling=2.0)
+    grads = None
+    if live is not None:
+        g = torch.autograd.grad(out.square().sum(), live)
+        grads = unflatten({p: t for (p, _), t in zip(pairs, g)})
+    return out.detach(), grads
+
+
+def _rows_of(mesh, B: int) -> slice:
+    b = B // mesh.n_data
+    return slice(mesh.rank * b, (mesh.rank + 1) * b)
+
+
+def _axis_steps(mesh, d: Path, kind: str, n_micro: int = 2) -> dict:
+    """Three train steps (the dp_train case's: batch 8, dropout 0) on this
+    rank's shards under ``kind`` ("tp", "sp" or "pp"), and the step's
+    gradients at the first batch; the gradients and the final LoRA tree
+    gathered whole."""
+    from clip_lora_match_tpu_torch import parallel as P
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig, LoraConfig, TrainingConfig
+    from clip_lora_match_tpu_torch.lora.adapter import load_lora
+    from clip_lora_match_tpu_torch.models.io import load_params
+    from clip_lora_match_tpu_torch.train import step as tstep
+
+    arch = ClipArchConfig(**SMALL_KW)
+    params = load_params(str(d.parent / "params.npz"), device="cpu")
+    lora, _ = load_lora(str(d.parent / "lora"), device="cpu")
+    lcfg = LoraConfig(dropout=0.0, **LORA_KW)
+    tcfg = TrainingConfig(learning_rate=5e-3, warmup_ratio=0.1)
+    batches = seeded_batches(3, 8, 11)
+    tx, _ = tstep.make_optimizer(tcfg, len(batches))
+    model = mesh.size(P.MODEL_AXIS) > 1
+    if kind == "tp":
+        state = P.init_tp_train_state(P.shard_lora_tp(lora, mesh), tx, seed=0)
+        step = tstep.make_train_step(P.shard_params_tp(params, mesh), arch, lcfg, tcfg, tx, eot_id=EOT,
+                                     mesh=mesh, transformer_fn=P.make_tp_transformer(mesh))
+    elif kind == "sp":
+        place = (lambda t, lora=False: P.shard_clip_sp_tp(t, mesh, lora)) if model else (
+            lambda t, lora=False: P.shard_clip_sp(t, mesh))
+        init = P.init_tp_train_state if model else P.init_sp_train_state
+        state = init(place(lora, lora=True), tx, seed=0)
+        step = P.make_sp_train_step(place(params), arch, lcfg, tcfg, tx, mesh, eot_id=EOT)
+    else:
+        state = P.init_pp_train_state(P.shard_clip_pp(lora, mesh), tx, seed=0)
+        step = P.make_pp_train_step(P.shard_clip_pp(params, mesh), arch, lcfg, tcfg, tx, mesh, n_micro,
+                                    eot_id=EOT)
+    loss0, grads = step.loss_and_grads(state.lora, P.shard_batch(mesh, batches[0]), state.specs)
+    out = {"loss0": loss0.item(), "grads": P.gather_sharded(grads, state.specs, mesh)}
+    losses, norms = [], []
+    for b in batches:
+        state, m = step(state, P.shard_batch(mesh, b))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    out.update(losses=losses, norms=norms, lora=P.gather_sharded(state.lora, state.specs, mesh),
+               coords=mesh.coords)
+    return out
+
+
+def tp_rank(mesh, d: Path) -> dict:
+    """Tensor parallelism: (data, model) = (1, 2) in a world of 2 and
+    (2, 2) in a world of 4. Each rank's shards, the TP encode of both towers
+    over the world's batch, the TP block's biases alone, and the train
+    steps."""
+    import torch
+
+    from clip_lora_match_tpu_torch import parallel as P
+    from clip_lora_match_tpu_torch.core.config import ClipArchConfig
+    from clip_lora_match_tpu_torch.lora.adapter import load_lora
+    from clip_lora_match_tpu_torch.models import clip as C
+    from clip_lora_match_tpu_torch.models.io import load_params
+    from clip_lora_match_tpu_torch.parallel.tp import tp_block
+
+    tp = P.make_mesh(n_model=2, device="cpu")
+    out = {"coords": tp.coords, "shape": tp.shape}
+    arch = ClipArchConfig(**SMALL_KW)
+    params = load_params(str(d.parent / "params.npz"), device="cpu")
+    lora, scaling = load_lora(str(d.parent / "lora"), device="cpu")
+    sp_, sl = P.shard_params_tp(params, tp), P.shard_lora_tp(lora, tp)
+    out["params"], out["lora"] = sp_, sl
+    b = seeded_batches(1, 8, 5)[0]
+    rows = _rows_of(tp, 8)
+    fn = P.make_tp_transformer(tp)
+    with torch.no_grad():
+        pix = torch.from_numpy(b["pixel_values"][rows]).float() / 255.0
+        out["image"] = C.encode_image_features(sp_, pix, arch, lora=sl, lora_scaling=scaling, transformer_fn=fn)
+        out["text"] = C.encode_text_features(sp_, torch.from_numpy(b["input_ids"][rows]), arch,
+                                             attention_mask=torch.from_numpy(b["attention_mask"][rows]),
+                                             eot_id=EOT, lora=sl, lora_scaling=scaling, transformer_fn=fn)
+        # a block whose kernels are all 0: the output is x + out_proj's bias
+        # + fc2's bias, each added once
+        blk = numpy_blocks(7, 1, 128, 256)
+        for tree in (blk["attn"], blk["mlp"]):
+            for proj in tree.values():
+                proj["kernel"][:] = 0
+        shard = P.shard_params_tp({"blocks": blk}, tp)["blocks"]
+        x = torch.from_numpy(np.random.default_rng(8).normal(size=(2, 5, 128)).astype(np.float32))
+        out["bias_block"] = (x, tp_block({k: v for k, v in _first_layer(shard).items()}, x, 2, tp))
+    out["step"] = _axis_steps(tp, d, "tp")
+    return out
+
+
+def _first_layer(tree):
+    return {k: _first_layer(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[0]
+
+
+def sp_rank(mesh, d: Path) -> dict:
+    """Sequence parallelism: the ring at n_seq = world (its output block and
+    the q/k/v gradients of a weighted sum), the SP executor over the
+    ``sp_inputs`` on (data, seq) = (1, world) and, in a world of 4, (2, 2),
+    the SP train steps: sp2 (world 2), dp2×sp2 and dp1×tp2×sp2 (world 4)."""
+    import torch
+
+    from clip_lora_match_tpu_torch import parallel as P
+    from clip_lora_match_tpu_torch.ops.ring_attention import ring_attention
+
+    n = mesh.world
+    out = {"ring": {}, "exec": {}}
+    seq = P.make_sp_mesh(n_seq=n, device="cpu")
+    for name, (q, k, v, m) in ring_inputs(n).items():
+        S_loc = q.shape[1] // n
+        blk = slice(seq.index("seq") * S_loc, (seq.index("seq") + 1) * S_loc)
+        qt, kt, vt = (torch.from_numpy(a[:, blk].copy()).requires_grad_(True) for a in (q, k, v))
+        mt = None if m is None else torch.from_numpy(m if m.shape[2] == 1 else m[:, :, blk])
+        o = ring_attention(qt, kt, vt, seq, "seq", mask=mt)
+        w = torch.from_numpy(np.random.default_rng(3).normal(size=q.shape).astype(np.float32)[:, blk])
+        gq, gk, gv = torch.autograd.grad((o * w).sum(), (qt, kt, vt))
+        out["ring"][name] = (o.detach(), gq, gk, gv)
+    blocks = _t(numpy_blocks(1, 3, EXEC["width"], EXEC["mlp"]))
+    lora = _t(numpy_lora_blocks(2, 3, EXEC["width"]))
+    meshes = {f"1x{n}": seq}
+    if n == 4:
+        meshes["2x2"] = P.make_sp_mesh(n_seq=2, n_data=2, device="cpu")
+    for tag, m_ in meshes.items():
+        fn = P.make_sp_transformer(m_)
+        for name, (x, mask, with_lora) in sp_inputs().items():
+            out["exec"][f"{tag}/{name}"] = _executor_run(fn, blocks, x, mask, lora if with_lora else None,
+                                                         EXEC["heads"], _rows_of(m_, 8))
+    if n == 2:
+        out["step/sp2"] = _axis_steps(seq, d, "sp")
+    else:
+        out["step/dp2xsp2"] = _axis_steps(meshes["2x2"], d, "sp")
+        out["step/tp2xsp2"] = _axis_steps(P.make_sp_mesh(n_seq=2, n_model=2, device="cpu"), d, "sp")
+    return out
+
+
+def pp_rank(mesh, d: Path) -> dict:
+    """Pipeline parallelism: the pipeline executor at (stage, M) = (2, 4) in
+    a world of 2 and (4, 2) in a world of 4 over 4 layers with a batch mask
+    and LoRA (output and LoRA gradients: the backward through the tick
+    loop), the pp×sp executor at S = 16 and 13 (world 4), and the train
+    steps pp2 (M = 4, world 2) and pp2×sp2 (world 4)."""
+    from clip_lora_match_tpu_torch import parallel as P
+
+    n = mesh.world
+    out = {"exec": {}}
+    blocks = numpy_blocks(3, 4, EXEC["width"], EXEC["mlp"])
+    lora = numpy_lora_blocks(4, 4, EXEC["width"])
+    M = 4 if n == 2 else 2
+    pp = P.make_pp_mesh(n_stage=n, device="cpu")
+    x, mask = pp_inputs()["batch8"]
+    fn = P.make_pipeline_transformer(pp, M)
+    o, g = _executor_run(fn, P.shard_clip_pp({"blocks": blocks}, pp)["blocks"], x, mask,
+                         P.shard_clip_pp({"blocks": lora}, pp)["blocks"], EXEC["heads"], slice(None))
+    out["exec"][f"pp{n}"] = (o, P.gather_sharded(g, P.clip_pp_pspecs({"blocks": g})["blocks"], pp), pp.coords)
+    if n == 2:
+        out["step/pp2"] = _axis_steps(pp, d, "pp", n_micro=4)
+    else:
+        ppsp = P.make_pp_mesh(n_stage=2, n_seq=2, device="cpu")
+        fn = P.make_pipeline_transformer(ppsp, 2)
+        b_, l_ = (P.shard_clip_pp({"blocks": t}, ppsp)["blocks"] for t in (blocks, lora))
+        for name in ("causal16", "causal13"):
+            x, mask = pp_inputs()[name]
+            o, g = _executor_run(fn, b_, x, mask, l_, EXEC["heads"], slice(None))
+            out["exec"][f"ppsp/{name}"] = (o, g, ppsp.coords)
+        out["step/pp2xsp2"] = _axis_steps(ppsp, d, "pp")
+    return out
+
+
 CASES = {"retrieval": retrieval_rank, "parallel": parallel_rank, "dp_train": dp_train_rank,
-         "cuda_retrieval": cuda_retrieval_rank, "cuda_dp_step": cuda_dp_step_rank}
+         "cuda_retrieval": cuda_retrieval_rank, "cuda_dp_step": cuda_dp_step_rank,
+         "tp": tp_rank, "sp": sp_rank, "pp": pp_rank}
 
 
 if __name__ == "__main__":

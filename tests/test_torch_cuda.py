@@ -1619,3 +1619,67 @@ def test_nccl_refuses_ranks_that_share_a_card(gen, tmp_path):
         initialize_distributed(f"file://{tmp_path}/store", n, n - 1, backend="nccl")
     with pytest.raises(ValueError, match="gloo"):  # more ranks on this host than cards
         initialize_distributed(f"file://{tmp_path}/store", n, 0, backend="nccl", local_world=n)
+
+
+# -- the model axes at axis size 1 on the card ---------------------------------
+
+
+@pytest.mark.parametrize("mask", ["none", "causal", "masked_rows"])
+def test_ring_attention_on_cuda_matches_its_oracle(gen, mask):
+    """One rank of the ring (its blocks never leave the card) against the
+    single-device oracle at the B/32 image tower's shape."""
+    from clip_lora_match_tpu_torch.ops.ring_attention import _MASK_FLOOR, ring_attention, ring_attention_oracle
+    from clip_lora_match_tpu_torch.parallel import make_sp_mesh
+
+    mesh = make_sp_mesh(n_seq=1)
+    q, k, v = (_rand(gen, 2, 50, 12, 64) for _ in range(3))
+    m = None
+    if mask == "causal":
+        m = torch.triu(torch.full((50, 50), NEG, device="cuda"), diagonal=1)[None, None]
+    elif mask == "masked_rows":
+        m = torch.zeros(2, 1, 50, 50, device="cuda")
+        m[:, :, :, 40:] = _MASK_FLOOR
+        m[:, :, 40:, :] = _MASK_FLOOR
+    got = ring_attention(q, k, v, mesh, mask=m)
+    ref = ring_attention_oracle(q, k, v, mask=m)
+    assert got.is_cuda and not torch.isnan(got).any()
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-6)
+    if mask == "masked_rows":
+        assert float(got[:, 40:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["tp", "sp", "pp"])
+def test_model_axis_executors_at_size_one_match_the_transformer_on_cuda(gen, kind, dtype):
+    """Each executor over a mesh of one rank, at B/32 image width (2 layers,
+    12 heads, S=50) with LoRA and the kernels under "auto", against the
+    plain ``transformer``: TP takes its very dispatch (lora_matmul and
+    attention_small), PP the same per microbatch, SP the ring in place of
+    attention_small (lora_matmul still launched)."""
+    import numpy as np
+
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch import parallel as P
+    from clip_lora_match_tpu_torch.models.clip import _init_blocks
+    from clip_lora_match_tpu_torch.models.io import to_device
+    from clip_lora_match_tpu_torch.nn.layers import transformer
+
+    blocks = to_device(_init_blocks(np.random.default_rng(0), 768, 3072, 2), "cuda")
+    lora = {"attn": {n: {"a": _rand(gen, 2, 768, 8, scale=768 ** -0.5), "b": _rand(gen, 2, 8, 768, scale=0.05)}
+                     for n in ("q_proj", "k_proj", "v_proj", "out_proj")}}
+    x = _rand(gen, 4, 50, 768)
+    fn = {"tp": lambda: P.make_tp_transformer(P.make_mesh()),
+          "sp": lambda: P.make_sp_transformer(P.make_sp_mesh(n_seq=1)),
+          "pp": lambda: P.make_pipeline_transformer(P.make_pp_mesh(n_stage=1), 2)}[kind]()
+    ops.reset_launch_counts()
+    got = fn(blocks, x, 12, lora_blocks=lora, lora_scaling=2.0, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["lora_matmul"] > 0 and (counts["attention_small"] > 0) == (kind != "sp"), counts
+    ref = transformer(blocks, x, 12, lora_blocks=lora, lora_scaling=2.0, compute_dtype=dtype)
+    if kind == "tp":
+        assert torch.equal(got, ref)
+    elif dtype is None:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    else:
+        assert _normrel(got.float(), ref.float()) <= 2e-2

@@ -289,9 +289,21 @@ def test_shard_batch_rows_match_jax(world):
 def test_mesh_refuses_what_it_cannot_place(world):
     for res in world:
         assert res["shard_batch_ragged"].startswith("ValueError") and "pad_to_multiple" in res["shard_batch_ragged"]
-        assert res["model_axis"].startswith("NotImplementedError")
+        # a model axis of 3 does not divide a world of 2 ranks
+        assert res["model_axis"].startswith("ValueError") and "model axis" in res["model_axis"]
         assert res["n_data_mismatch"].startswith("ValueError")
         assert res["unequal_locals"].startswith("ValueError")
+
+
+def test_model_axis_mesh_places_each_rank_as_jax_does(world):
+    """``make_mesh(n_model=2)`` in the world of 2 is the (data, model) =
+    (1, 2) mesh: rank r at JAX device r's coordinates."""
+    mesh = JM.make_mesh(n_data=1, n_model=2, devices=jax.devices()[:2])
+    for rank, res in enumerate(world):
+        names, sizes, coords = res["model_mesh"]
+        assert names == mesh.axis_names and sizes == tuple(mesh.devices.shape)
+        position = np.argwhere(mesh.devices == jax.devices()[rank])[0]
+        assert coords == tuple(int(c) for c in position)
 
 
 def test_world_reports_its_ranks(world):
