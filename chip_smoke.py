@@ -12,6 +12,9 @@ one NVIDIA GPU.
     python3 chip_smoke.py --stop-after 9         # phases 1-9 (an A/B without the evaluation phase)
     python3 chip_smoke.py --stop-after 10        # phases 1-10 (an A/B without the data axis)
     python3 chip_smoke.py --stop-after 11        # phases 1-11 (an A/B without the model axes)
+    python3 chip_smoke.py --stop-after 12        # phases 1-12 (an A/B without approximate top-k and
+                                                 # the last entry points)
+    python3 chip_smoke.py --only approx_topk     # build and check the bin-max kernel (phase 2 only)
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -24,6 +27,9 @@ Phases (any failure raises and exits non-zero):
    / library times (wall per call between CUDA events, and the kernel's and
    the library's device time from torch.profiler) and the bound (fp32 flash
    and fp32 pass 1 on its mma body at the 3xTF32 rate they compute at)
+   (the bin-max kernel of approximate top-k, csrc/retrieval_binmax.cu, at
+   Q = 1 and 64 over a seeded 44,446-row index in fp32 and bf16, k = 10, r =
+   0.95, with its recall and the exact route's time beside it)
    (the pass-1 tile-max kernels over 524,298- and 1,048,586-row indexes at
    Q = 1, 16 (tilemax) and 64, each row naming the body its plan took, both
    bodies of tilemax (bf16, fp32) and of tilemax_sup_q8 (int8) at Q = 8, 16
@@ -183,7 +189,33 @@ Phases (any failure raises and exits non-zero):
    dp2×tp2, dp1×tp2×sp2 and pp2×sp2 (M=4) in the world of 4: each rank's
    losses over 2 steps and LoRA tree after them within rel 1e-5 of one
    process's, the step ms beside one process's, the collectives' count and
-   ms by axis, peak memory and launches by rank.
+   ms by axis, peak memory and launches by rank;
+13. approximate top-k and the last entry points: (a) the bin-max kernel
+   (XLA's ApproxTopK partial reduce, ops/approx_topk.py) against its plain
+   version over phase 3's 44,446 rows at Q = 1 and 64, k = 5, 10, 100, r =
+   0.9, 0.95, 0.99, and over a 524,298-row bf16 arena at Q = 64, k = 10,
+   r = 0.95: L and lg, the bins' maxima and ids, the top-k tie-aware, the
+   recall against the exact route (>= r - 0.05 over each (k, r)'s 65
+   queries), and the wrapper's, the
+   kernel's, the plain version's, the exact route's and one library call's
+   times beside the bound (device time twice: torch.profiler's, refused
+   where its record is incomplete, and the span of CUDA events around calls
+   queued behind a spin kernel; the profiler's window check); then 15 text
+   requests through
+   SearchIndex(approximate=True) over phase 3's index, counted (approx_topk
+   15, topk_retrieve 0), each finding its own row; (b) at full ViT-B/32
+   width over phase 3's weights and adapter saved to a temporary .npz and
+   adapter directory, from a temporary working directory: index.cli
+   build-custom and build-text, every services.cli demo once in one-shot
+   mode (finder-report into a copy of the index with a SqliteStore, found
+   first by the next search-text-custom; seeker; search-text and
+   search-image over the text index; search-text-custom,
+   search-image-custom; search-image-yolo staged and --fused with the
+   committed synth detector), lora.cli merge, peft and native (the adapter
+   back bit for bit; the merged weights within cosine 0.9999 of the
+   unmerged encoder in fp32, the bf16 cosine printed), tokenizer.cli,
+   models.cli load and lora-inference, and models.yolo.cli heldout over
+   five rendered photos (2 folds, 1 epoch) with its pooled JSON.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel table as
 JSON. Exits non-zero without a CUDA device or without the port's package
@@ -192,6 +224,7 @@ beside it.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
@@ -227,8 +260,11 @@ KERNELS = {
     "tilemax_sup_q8": ("retrieval_tilemax", "clip_lora_match_tpu/ops/retrieval_topk.py:830"),
     "mlp_fused": ("mlp_fused", "clip_lora_match_tpu/ops/mlp_fused.py:96"),
     "flash_attention": ("flash_attention", "clip_lora_match_tpu/ops/flash_attention.py:110"),
+    # no pallas_call: XLA's ApproxTopK (lax.approx_max_k) in the JAX package's approximate search
+    "approx_topk": ("retrieval_binmax", "clip_lora_match_tpu/retrieval/similarity.py:40 (XLA ApproxTopK)"),
 }
-OFF_BY_DEFAULT = {"mlp_fused": 0, "flash_attention": 0}  # off by default: phases 3-4 never launch them
+# off by default, or reached only through approximate=True: phases 3-4 never launch them
+OFF_BY_DEFAULT = {"mlp_fused": 0, "flash_attention": 0, "approx_topk": 0}
 L14_INDEX_ROWS = 44_436  # phase 5: seeded unit rows at D=768; +5 texts +5 images
 # SMOKE_UNGROUPED_LORA=1 runs this script in a checkout from before the
 # grouped q/k/v launch (an A/B against it): 4 lora_matmul launches per
@@ -270,24 +306,73 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int = 10):
+def device_ms(torch, fn, reps: int = 10, expect: str | None = None, floor_ms: float = 0.0):
     """Device time of one call of ``fn`` (every kernel and copy it starts on
-    the card), the mean over ``reps`` calls profiled after a warm-up call;
-    None when the profiler sees no device activity."""
+    the card), the mean over ``reps`` calls profiled after a warm-up call.
+    None, with the reason and the profiler's rows logged, when the record is
+    incomplete: no device activity, a kernel whose count is not a multiple of
+    ``reps`` (the calls are alike, so some of its records were lost), no
+    kernel whose name holds ``expect`` (the hand-written kernel the call
+    launches), or a time below ``floor_ms``, the least the card could take."""
     rows = device_rows(torch, fn, reps)
-    return sum(r[0] for r in rows) / reps if rows else None
+    ms = sum(r[0] for r in rows) / reps if rows else None
+    if ms is None:
+        kind, why = "empty", "no device activity"
+    elif any(count % reps for _, count, _ in rows):
+        kind, why = "counts", f"kernel counts not multiples of the {reps} calls"
+    elif expect is not None and not any(expect in name for _, _, name in rows):
+        kind, why = "kernel missing", f"no kernel named *{expect}*"
+    elif ms < floor_ms:
+        kind, why = "below bound", f"{ms:.5f} ms per call, below the bound {floor_ms:.5f} ms"
+    else:
+        return ms
+    seen = ", ".join(f"{name[:60]} x{count} {t:.4f} ms" for t, count, name in sorted(rows, reverse=True)[:6])
+    log(f"  device time not measured: {why}; the profiler recorded [{seen}]")
+    DEVICE_GAPS.append(kind)
+    return None
 
 
-def timings(torch, kern, plain, library) -> dict:
+# the readings device_ms refused in this run, by reason (summed in the log's last lines)
+DEVICE_GAPS: list[str] = []
+
+
+def span_ms(torch, fn, reps: int = 10):
+    """Device time of one call of ``fn`` without torch.profiler: the span of
+    CUDA events around ``reps`` calls queued behind a spin kernel, so that
+    the card starts them only once the host has issued them all and the span
+    holds no host time (the card's gaps between launches stay in it). None
+    when the spin was over before the host was done (``fn`` waits on the
+    card, or the spin was too short)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    # twice the calls' wall at 2 GHz (the H100's SM clock is at most 1.98 GHz)
+    cycles = int(max(2 * (time.perf_counter() - t), 1e-3) * 2e9)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps if queued else None
+
+
+def timings(torch, kern, plain, library, expect: str, floor_ms: float) -> dict:
     """A phase-2 row's times: wall per call (CUDA events over back-to-back
     calls, so host work in a wrapper shows) of the kernel's wrapper, its
     plain version and the library call, and the device time (torch.profiler)
-    of the wrapper's and the library call's kernels."""
+    of the wrapper's and the library call's kernels, each held to the row's
+    bound and the wrapper's to its kernel ``expect``."""
     return dict(
         ms=cuda_ms(torch, kern), plain_ms=cuda_ms(torch, plain),
         library_ms=None if library is None else cuda_ms(torch, library),
-        device_ms=device_ms(torch, kern),
-        library_device_ms=None if library is None else device_ms(torch, library),
+        device_ms=device_ms(torch, kern, expect=expect, floor_ms=floor_ms),
+        library_device_ms=None if library is None else device_ms(torch, library, floor_ms=floor_ms),
     )
 
 
@@ -341,7 +426,7 @@ def check_attention(torch, ops_attn, gen):
             shape=f"B={B} S={S} H={H} hd=64 {'causal' if causal else 'maskless'} {kind}",
             **timings(torch, lambda: ops_attn.attention_small(q, k, v, causal=causal),
                       lambda: ops_attn.attention_small_plain(q, k, v, causal=causal),
-                      lambda: sdpa(qt, kt, vt, is_causal=causal)),
+                      lambda: sdpa(qt, kt, vt, is_causal=causal), "attention_small_", b_ms),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
     return rows, worst
@@ -405,7 +490,7 @@ def check_lora(torch, ops_lora, gen):
             shape=what,
             **timings(torch, lambda: call(ops_lora.lora_matmul, x, w, a, b, G),
                       lambda: call(ops_lora.lora_matmul_plain, x, w, a, b, G),
-                      lambda: torch.addmm(torch.mm(torch.mm(x, a), b), x, w, beta=s)),
+                      lambda: torch.addmm(torch.mm(torch.mm(x, a), b), x, w, beta=s), "lora_matmul_", b_ms),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
     return rows, worst
@@ -454,7 +539,7 @@ def check_topk(torch, ops_topk, gen):
                     shape=what,
                     **timings(torch, lambda: ops_topk.topk_retrieve(queries, index, k),
                               lambda: ops_topk.topk_retrieve_plain(queries, index, k),
-                              lambda: torch.topk(qn @ index.T, k)),
+                              lambda: torch.topk(qn @ index.T, k), "topk_", b_ms),
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                 ))
     return rows, worst
@@ -497,7 +582,7 @@ def check_flash(torch, ops_flash, gen):
                   f"{' (bound: 3xTF32)' if arith == '3xtf32' else ''}",
             **timings(torch, lambda: ops_flash.flash_attention(q, k, v, mask=mask),
                       lambda: ops_flash.flash_attention_plain(q, k, v, mask=mask),
-                      lambda: sdpa(qt, kt, vt, attn_mask=lib_mask)),
+                      lambda: sdpa(qt, kt, vt, attn_mask=lib_mask), "flash_attention_", b_ms),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
     return rows, worst
@@ -534,7 +619,7 @@ def check_mlp_fused(torch, ops_mlp, gen):
         rows.append(dict(
             shape=f"M={M} K=N={K} H={H} bf16",
             **timings(torch, lambda: ops_mlp.mlp_fused(x, w1, b1, w2, b2),
-                      lambda: ops_mlp.mlp_fused_plain(x, w1, b1, w2, b2), library),
+                      lambda: ops_mlp.mlp_fused_plain(x, w1, b1, w2, b2), library, "mlp_fused_", b_ms),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
         ))
     return rows, worst
@@ -563,7 +648,7 @@ def check_pass1(torch, R, gen):
     def record(name, shape, err, kern, plain, library, nbytes, ops_, kind):
         rows, worst = out[name]
         b_ms, b_by = bound_ms(nbytes, ops_, kind)
-        rows.append(dict(shape=shape, **timings(torch, kern, plain, library),
+        rows.append(dict(shape=shape, **timings(torch, kern, plain, library, "tilemax", b_ms),
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
         out[name] = (rows, max(worst, err))
 
@@ -674,6 +759,86 @@ def check_pass1(torch, R, gen):
     return out
 
 
+def approx_row(torch, AT, R, index, queries, k: int, r: float, where: str) -> dict:
+    """The bin-max kernel (``ops/approx_topk.py``) against its plain version
+    on one shape, and the whole approximate selection against the plain
+    selection: every bin's id is a row of its bin scoring the plain maximum
+    and the values agree within 2e-6 (sum order; 3xTF32 on the fp32 mma
+    body); the top-k scores within 2e-6, ids tie-aware. Returns the row:
+    L, lg, the body, the recall against the exact route, the kernel's
+    (``binmax``), its plain version's and the library's times and its bound,
+    then the whole selection's (``approx_topk``, ``approx_topk_plain``, the
+    library's with a top-k) beside the exact route's."""
+    Q, D = queries.shape
+    N = index.shape[0]
+    L, lg = AT.reduction_bins(N, k, r)
+    qc = R._normalize_div(queries).to(index.dtype)
+    p = AT.binmax_plan(Q, N, D, index.dtype, L, torch.cuda.get_device_properties(0).multi_processor_count)
+    what = f"Q={Q} N={N} D={D} k={k} r={r} {str(index.dtype)[6:]} index ({where}) L={L} lg={lg}"
+    before = dict(AT.approx_topk.bodies)
+    vals, ids = AT.binmax(qc, index, L)
+    rv, _ = AT.binmax_plain(qc, index, L)
+    torch.cuda.synchronize()
+    ran = [b for b, n in AT.approx_topk.bodies.items() if n != before[b]]
+    if ran != [p.body]:
+        raise AssertionError(f"binmax {what}: bodies {ran}, plan {p.body}")
+    sims = qc.float() @ index.float().T
+    bin_err = max((vals - rv).abs().max().item(), (sims.gather(1, ids.long()) - rv).abs().max().item())
+    if not bin_err <= 2e-6 or not ((ids.long() % L) == torch.arange(L, device="cuda")).all():
+        raise AssertionError(f"binmax {what}: bin maxima err {bin_err} or ids outside their bins")
+    del sims
+    s, i = AT.approx_topk(queries, index, k, r)
+    rs, ri = AT.approx_topk_plain(queries, index, k, r)
+    torch.cuda.synchronize()
+    err = (s - rs).abs().max().item()
+    if not err <= 2e-6:
+        raise AssertionError(f"approx_topk {what}: score err {err}")
+    assert_ids_tie_aware(torch, f"approx_topk {what}", i, rs, ri, 2e-6)
+    _, ei = R.topk_retrieve_auto(queries, index, k)
+    recall = sum(len(set(a) & set(b)) for a, b in zip(i.tolist(), ei.tolist())) / (Q * k)
+    qn = qc.float()
+    W = -(-N // L)
+
+    def library():  # one product, then the strided max with its argmax
+        sims = torch.nn.functional.pad(qn @ index.float().T, (0, W * L - N), value=-float("inf"))
+        return torch.max(sims.view(Q, W, L), dim=1)
+
+    def library_select():  # the same, then a top-k over the bins
+        v, w = library()
+        return torch.topk(v, k, dim=1), w
+
+    elem = index.element_size()
+    kind = {"mma": "3xtf32" if elem == 4 else "bf16", "cuda_core": "fp32"}[p.body]
+    b_ms, b_by = bound_ms(N * D * elem + Q * D * elem + Q * L * 8, 2 * Q * N * D, kind)
+    select = lambda: AT.approx_topk(queries, index, k, r)  # noqa: E731
+    return dict(shape=f"{what} [{p.body} qb={p.qb} splits={p.splits} grid={'x'.join(map(str, p.grid))}]",
+                **timings(torch, lambda: AT.binmax(qc, index, L), lambda: AT.binmax_plain(qc, index, L), library,
+                          "binmax_", b_ms),
+                span_ms=span_ms(torch, lambda: AT.binmax(qc, index, L)), library_span_ms=span_ms(torch, library),
+                select_ms=cuda_ms(torch, select),
+                select_device_ms=device_ms(torch, select, expect="binmax_", floor_ms=b_ms),
+                select_span_ms=span_ms(torch, select),
+                select_plain_ms=cuda_ms(torch, lambda: AT.approx_topk_plain(queries, index, k, r)),
+                select_library_ms=cuda_ms(torch, library_select),
+                exact_ms=cuda_ms(torch, lambda: R.topk_retrieve_auto(queries, index, k)),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(err, bin_err), recall=recall, L=L, lg=lg)
+
+
+def check_approx(torch, AT, R, gen):
+    """Phase 2's rows of the bin-max kernel: a 44,446-row seeded index (fp32
+    and bf16) at the seeker's Q = 1 (the first row: phase 13's counted
+    searches) and search_batch's Q = 64, k = 10, r = 0.95."""
+    N, D = INDEX_ROWS + 10, 512
+    base = torch.nn.functional.normalize(torch.randn(N, D, device="cuda", generator=gen), dim=1)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        index = base.to(dtype)
+        for Q in (1, 64):
+            rows.append(approx_row(torch, AT, R, index, torch.randn(Q, D, device="cuda", generator=gen),
+                                   10, 0.95, "seeded"))
+    return rows, max(r["max_abs_err"] for r in rows)
+
+
 def pass1_crossover(torch, R, gen, card):
     """Both bodies of ``tilemax`` (bf16, fp32) and of ``tilemax_sup_q8``
     (int8, group 16) at Q = 8, 16 and 32 over the 524,298-row index, each
@@ -718,7 +883,7 @@ def pass1_crossover(torch, R, gen, card):
                 err = (got - ref).abs().max().item()
                 if not (torch.equal(got, ref) if scales is not None else err <= 1e-5):
                     raise AssertionError(f"pass 1 {body} Q={Q} {kind}: max err {err}")
-                times[body] = device_ms(torch, run)
+                times[body] = device_ms(torch, run, expect="tilemax")
             name = "tilemax" if scales is None else "tilemax_sup_q8"
             log(f"{name} crossover Q={Q} N={N} D={D} {kind}: cuda_core device_ms {fmt(times['cuda_core'])} "
                 f"mma device_ms {fmt(times['mma'])}; the plan takes "
@@ -740,7 +905,15 @@ def _host_ms(fn, reps: int = 10) -> float:
     return statistics.median(samples)
 
 
-def device_rows(torch, fn, reps: int = 1) -> list:
+# torch.profiler keeps only the device records that fall inside its capture
+# window, timed on its host clock, and late in a long run it loses records,
+# more the older the process. Holding the window open this long on either
+# side of the calls saves some (profiler_window_check in phase 13 (a)), not
+# all: device_ms refuses a reading whose record is still incomplete.
+PROFILE_PAD_S = 0.02
+
+
+def device_rows(torch, fn, reps: int = 1, pad_s: float = PROFILE_PAD_S) -> list:
     """(device ms, count, name) of every device activity (kernels and copies)
     in ``reps`` calls of ``fn`` after a warm-up call, from torch.profiler."""
     from torch.autograd import DeviceType
@@ -749,9 +922,11 @@ def device_rows(torch, fn, reps: int = 1) -> list:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     per: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -759,6 +934,15 @@ def device_rows(torch, fn, reps: int = 1) -> list:
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
     return [(ms, count, key) for key, (ms, count) in per.items()]
+
+
+def profiler_window_check(torch, fn, name: str, reps: int = 10) -> None:
+    """The records torch.profiler keeps of the kernel named ``name`` over
+    ``reps`` calls of ``fn`` (one launch a call), without and with the
+    window's margins: late in the run, the evidence for PROFILE_PAD_S."""
+    got = [sum(c for _, c, n in device_rows(torch, fn, reps, pad) if name in n) for pad in (0.0, PROFILE_PAD_S)]
+    log(f"profiler window check, {reps} calls launching *{name}*: {got[0]} records without margins, "
+        f"{got[1]} with {PROFILE_PAD_S * 1e3:.0f} ms margins")
 
 
 def profile_device_time(torch, name: str, fn, wall_ms: float, card: str) -> None:
@@ -1244,6 +1428,7 @@ def l14_path(torch, card, texts, images, paths, files=None, w8a8=False):
                 "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
                 "mlp_fused": 2 * n * (vl + tl),              # every MLP of both towers
                 "flash_attention": 2 * n * vl,               # image tower: image + fused requests
+                "approx_topk": 0,
             }
             if counts != want:
                 raise AssertionError(f"phase 5 launch counts {counts} != expected {want}")
@@ -2179,6 +2364,7 @@ def w8a8_path(torch, card, enc, texts, images, index, lat3) -> None:
         want = {
             "attention_small": 4 * n * layers, "lora_matmul": 0, "topk_retrieve": 3 * n,
             "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0, "mlp_fused": 0, "flash_attention": 0,
+            "approx_topk": 0,
         }
         if counts != want or gemms != 4 * layers * 4 * n:  # 4 a layer, 4n tower passes
             raise AssertionError(f"phase 8 (b) launches {counts}, int8 products {gemms}: expected {want}, "
@@ -2264,7 +2450,7 @@ def l14_w8a8(torch, card, enc, pix, img_k) -> None:
     torch.cuda.synchronize()
     counts, gemms = ops.launch_counts(), Q.int8_mm.calls
     want = {"attention_small": 0, "lora_matmul": 0, "topk_retrieve": 0, "tilemax": 0, "tilemax_sup": 0,
-            "tilemax_sup_q8": 0, "mlp_fused": 0, "flash_attention": vl}
+            "tilemax_sup_q8": 0, "mlp_fused": 0, "flash_attention": vl, "approx_topk": 0}
     if counts != want or gemms != 4 * vl:
         raise AssertionError(f"phase 8 (c) launches {counts}, int8 products {gemms}")
     if got.shape != img_k.shape or not np.isfinite(got).all():
@@ -4049,6 +4235,274 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: approximate top-k and the last entry points
+# ---------------------------------------------------------------------------
+
+APPROX_GRID = [(Q, k, r) for Q in (1, 64) for k in (5, 10, 100) for r in (0.9, 0.95, 0.99)]
+
+
+def approx_path(torch, card, enc, index, texts, gen) -> tuple:
+    """Phase 13 (a): the bin-max kernel and the whole approximate selection
+    against their plain versions over phase 3's 44,446-row fp32 index (Q 1
+    and 64, k 5, 10, 100, r 0.9, 0.95, 0.99) and a 524,298-row bf16 arena
+    (phase 4 (b)'s size: Q = 64, k = 10, r = 0.95), then 15 counted text
+    requests through SearchIndex(approximate=True), each finding its own
+    row (phase 3's text rows). Returns their launches and the rows."""
+    from clip_lora_match_tpu_torch import ops
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+    from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+    from clip_lora_match_tpu_torch.retrieval.search import SearchIndex
+
+    t0 = time.perf_counter()
+    emb = index.embeddings[:INDEX_ROWS + 10]  # phase 3's rows (phase 9 appended its own after them)
+    rows = []
+    for Q, k, r in APPROX_GRID:
+        q = torch.randn(Q, emb.shape[1], device="cuda", generator=gen)
+        rows.append(approx_row(torch, AT, R, emb, q, k, r, "phase 3's index"))
+    arena = torch.nn.functional.normalize(
+        torch.randn(BF16_ROWS + 10, emb.shape[1], device="cuda", generator=gen), dim=1).to(torch.bfloat16)
+    rows.append(approx_row(torch, AT, R, arena, torch.randn(64, emb.shape[1], device="cuda", generator=gen),
+                           10, 0.95, "bf16 arena"))
+    del arena
+    for row in rows:
+        log(f"phase 13 (a) {row['shape']}: binmax wall ms {row['ms']:.5f} (device {fmt(row['device_ms'])}, span "
+            f"{fmt(row['span_ms'])}), plain {row['plain_ms']:.5f}, library {fmt(row['library_ms'])} (device "
+            f"{fmt(row['library_device_ms'])}, span {fmt(row['library_span_ms'])}), bound {row['bound_ms']:.5f} "
+            f"({row['bound_by']}); approx_topk wall ms {row['select_ms']:.5f} (device {fmt(row['select_device_ms'])}, "
+            f"span {fmt(row['select_span_ms'])}), plain {row['select_plain_ms']:.5f}, library "
+            f"{row['select_library_ms']:.5f}, exact route {row['exact_ms']:.5f}; recall {row['recall']:.4f}; "
+            f"max err {row['max_abs_err']:.3e} [{card}]")
+    # recall is an expectation: each (k, r) pooled over its 65 queries
+    for k, r in sorted({(k, r) for _, k, r in APPROX_GRID}):
+        pooled = [(row["recall"], Q) for row, (Q, kk, rr) in zip(rows, APPROX_GRID) if (kk, rr) == (k, r)]
+        recall = sum(x * Q for x, Q in pooled) / sum(Q for _, Q in pooled)
+        if not recall >= r - 0.05:
+            raise AssertionError(f"phase 13 (a) k={k} r={r}: recall {recall} over 65 queries < {r - 0.05}")
+
+    search = SearchIndex(index, enc, approximate=True, recall_target=0.95)
+    L, lg = AT.reduction_bins(len(index), 5, 0.95)
+    ops.reset_launch_counts()
+    res = [search.search_by_text(texts[i % len(texts)], 5) for i in range(15)]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    layers = enc.arch.text_layers
+    want = {name: 0 for name in counts}
+    want.update(approx_topk=15, attention_small=15 * layers, lora_matmul=15 * LORA_PER_LAYER * layers)
+    if counts != want:
+        raise AssertionError(f"phase 13 (a) launches {counts} != {want}")
+    for i, rr in enumerate(res):
+        if len(rr) != 5 or rr[0].index != INDEX_ROWS + i % len(texts):
+            raise AssertionError(f"phase 13 (a) approximate text search {i}: top {rr[0].index if rr else None}")
+    lat = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        search.search_by_text(texts[i % len(texts)], 5)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    log(f"phase 13 (a) SearchIndex(approximate=True, recall_target=0.95) over {len(index)} rows (L={L}, "
+        f"lg={lg}): 15 text requests, launches {json.dumps({k: v for k, v in counts.items() if v})}, each "
+        f"its own row first; request latency, median of 10: {statistics.median(lat):.4f} ms [{card}]")
+    qc = R._normalize_div(torch.randn(1, emb.shape[1], device="cuda", generator=gen)).to(emb.dtype)
+    profiler_window_check(torch, lambda: AT.binmax(qc, emb, 384), "binmax_core")
+    log(f"phase 13 (a): {time.perf_counter() - t0:.1f} s")
+    return counts, rows
+
+
+def _heldout_labels(tmp: str) -> str:
+    """Five rendered detection photos, one of them filed under two
+    directories (as data/real_labels/real_boxes.json files one photo twice),
+    and their labels in that file's layout."""
+    import random
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import generate_fashion_corpus as gen
+
+    rng = random.Random(1234)
+    entries = []
+    for i, sub in enumerate(("reported", "reported", "reported", "custom", "custom")):
+        path = os.path.join("photos", sub, f"photo{i}.jpg")
+        os.makedirs(os.path.join(tmp, "photos", sub), exist_ok=True)
+        img, boxes = gen.render_detect_image(rng, 320, max_objects=1)
+        img.save(os.path.join(tmp, path), quality=92)
+        x1, y1, x2, y2, c = boxes[0]
+        entries.append({"path": path, "width": 320, "height": 320, "boxes": [
+            {"class": gen.ARTICLE_CLASSES[c], "xyxy": [float(x1), float(y1), float(x2), float(y2)]}]})
+    twin = dict(entries[3], path=os.path.join("photos", "reported", "photo3.jpg"))
+    shutil.copy(os.path.join(tmp, entries[3]["path"]), os.path.join(tmp, twin["path"]))
+    labels = os.path.join(tmp, "labels.json")
+    with open(labels, "w") as f:
+        json.dump({"classes": list(gen.ARTICLE_CLASSES), "images": entries + [twin]}, f)
+    return labels
+
+
+def entry_points_path(torch, card, enc, texts, paths) -> None:
+    """Phase 13 (b): every entry point of services.cli, lora.cli,
+    tokenizer.cli, models.cli and models.yolo.cli heldout, in this process at
+    full ViT-B/32 width over phase 3's weights and adapter (saved to a
+    temporary .npz and adapter directory), from a temporary working directory."""
+    import contextlib
+    import io
+
+    from clip_lora_match_tpu_torch.core.config import LoraConfig
+    from clip_lora_match_tpu_torch.index import cli as index_cli
+    from clip_lora_match_tpu_torch.lora import cli as lora_cli
+    from clip_lora_match_tpu_torch.lora.adapter import save_lora
+    from clip_lora_match_tpu_torch.models import cli as models_cli
+    from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
+    from clip_lora_match_tpu_torch.models.yolo import cli as yolo_cli
+    from clip_lora_match_tpu_torch.services import cli as services_cli
+    from clip_lora_match_tpu_torch.tokenizer import cli as tokenizer_cli
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        weights, adapter = os.path.join(tmp, "b32.npz"), os.path.join(tmp, "adapter")
+        enc.save(weights)
+        save_lora(adapter, enc.lora, LoraConfig())
+        clip_yaml = os.path.join(REPO, "config", "clip_config.yaml")
+        yaml32 = os.path.join(tmp, "clip_fp32.yaml")
+        with open(clip_yaml) as f:
+            text = f.read()
+        with open(yaml32, "w") as f:
+            f.write(text.replace('compute_dtype: "bfloat16"', 'compute_dtype: "float32"'))
+        E = ["--clip-config", clip_yaml, "--weights", weights, "--lora", adapter, "--device", "cuda"]
+        custom_csv, val_csv = os.path.join(tmp, "custom.csv"), os.path.join(tmp, "val.csv")
+        with open(custom_csv, "w", encoding="utf-8") as f:
+            f.write("image_path,text\n" + "".join(f"{p},{t}\n" for p, t in zip(paths, texts)))
+        import csv as csv_mod
+
+        with open(os.path.join(REPO, "data", "text", "val_fashion.csv"), newline="", encoding="utf-8") as f:
+            val = list(csv_mod.DictReader(f))
+        with open(val_csv, "w", newline="", encoding="utf-8") as f:
+            w = csv_mod.writer(f)
+            w.writerow(["image_path", "text"])
+            w.writerows([(os.path.join(REPO, r["image_path"]), r["text"]) for r in val])
+        custom, fashion = os.path.join(tmp, "custom_items_index.npz"), os.path.join(tmp, "fashion_text_index.npz")
+        log(f"phase 13 (b) set-up (B/32 weights, adapter, CSVs): {time.perf_counter() - t0:.1f} s")
+
+        def run(name, cli, argv, check):
+            t = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out = cli.run(argv)
+            printed = buf.getvalue()
+            torch.cuda.synchronize()
+            msg = check(out, printed)
+            last = printed.strip().splitlines()
+            log(f"phase 13 (b) {name}: {time.perf_counter() - t:.2f} s; {msg}; last line: "
+                f"{last[-1][:140] if last else ''!r}")
+            return out
+
+        def results(n):
+            def check(res, printed):
+                if len(res) != n or not all(np.isfinite(r.score) for r in res):
+                    raise AssertionError(f"{len(res)} results, expected {n}")
+                return f"top {res[0].index} ({res[0].score:.4f})"
+            return check
+
+        idx = run("index.cli build-custom", index_cli, ["build-custom", "--csv", custom_csv, "--out", custom, *E],
+                  lambda ix, p: f"{len(ix)} rows, verify ok" if "verify=ok" in p and len(ix) == len(texts)
+                  else _fail("build-custom"))
+        run("index.cli build-text", index_cli, ["build-text", "--csv", val_csv, "--out", fashion, *E],
+            lambda ix, p: f"{len(ix)} rows, verify ok" if "verify=ok" in p and len(ix) == len(val)
+            else _fail("build-text"))
+        copy = os.path.join(tmp, "report", "custom_items_index.npz")
+        os.makedirs(os.path.dirname(copy))
+        for ext in (".npz", ".json"):
+            shutil.copy(custom[:-4] + ext, copy[:-4] + ext)
+        desc = "tas ransel biru tertinggal di perpustakaan"
+        rep = run("services.cli finder-report", services_cli,
+                  ["finder-report", "--index", copy, "--image", paths[0], "--description", desc,
+                   "--location", "perpustakaan", "--db", os.path.join(tmp, "found.sqlite"), *E],
+                  lambda r, p: f"row {r.index_row}, item id {r.item_id}" if r.index_row == len(texts)
+                  and r.item_id == 1 else _fail("finder-report"))
+        run("services.cli search-text-custom (the reported copy)", services_cli,
+            ["search-text-custom", "--index", copy, "--query", f"{desc}, ditemukan di perpustakaan", *E],
+            lambda res, p: f"the report (row {rep.index_row}) first, {res[0].score:.4f}"
+            if res[0].index == rep.index_row else _fail(f"search after report: top {res[0].index}"))
+        run("services.cli seeker", services_cli,
+            ["seeker", "--index", custom, "--description", texts[1], "--image", paths[1], *E], results(5))
+        run("services.cli search-text", services_cli, ["search-text", "--index", fashion, "--query", val[0]["text"],
+                                                       *E], results(5))
+        run("services.cli search-text-custom", services_cli,
+            ["search-text-custom", "--index", custom, "--query", texts[2], *E],
+            lambda res, p: f"its own row first ({res[0].score:.4f})" if res[0].index == 2 else _fail("text"))
+        run("services.cli search-image", services_cli,
+            ["search-image", "--index", fashion, "--image", os.path.join(REPO, val[1]["image_path"]), *E],
+            results(5))
+        run("services.cli search-image-custom", services_cli,
+            ["search-image-custom", "--index", custom, "--image", paths[3], *E], results(5))
+        synth = os.path.join(REPO, "models", "yolo_synth", "yolov8n_synth.npz")
+        Y = ["--index", custom, "--image", paths[4], "--yolo-weights", synth,
+             "--yolo-config", os.path.join(REPO, "config", "yolo_config.yaml"), *E]
+
+        def staged_check(res, printed):  # the demo searches with the whole image when the crop fails
+            if "crop failed" in printed or f"query crop: {paths[4]}\n" in printed:
+                raise AssertionError(f"phase 13 (b) staged yolo: the crop stage did not crop: {printed!r}")
+            return results(5)(res, printed)
+
+        staged = run("services.cli search-image-yolo (staged)", services_cli, ["search-image-yolo", *Y], staged_check)
+        run("services.cli search-image-yolo --fused", services_cli, ["search-image-yolo", *Y, "--fused"],
+            lambda out, p: f"detected {out[3]}, ids {out[1].tolist()}, staged ids "
+            f"{[r.index for r in staged]}" if len(out[1]) == 5 and np.isfinite(out[0]).all()
+            else _fail("fused"))
+
+        merged = os.path.join(tmp, "merged.npz")
+        run("lora.cli merge", lora_cli, ["merge", "--adapter", adapter, "--out", merged, *E],
+            lambda t, p: f"{os.path.getsize(merged) / 1e6:.0f} MB")
+        run("lora.cli peft", lora_cli, ["peft", "--adapter", adapter, "--out", os.path.join(tmp, "peft"), *E],
+            lambda t, p: "adapter_model.safetensors written")
+        back = run("lora.cli native", lora_cli, ["native", "--adapter", os.path.join(tmp, "peft"),
+                                                 "--out", os.path.join(tmp, "native"), *E],
+                   lambda t, p: "read back from PEFT")
+        same_tree(torch, "phase 13 (b) peft -> native adapter", back, enc.lora)
+        cos = {}
+        for name, yaml in (("fp32", yaml32), ("bf16", clip_yaml)):
+            unmerged = ClipEncoder.from_config(yaml, weights, adapter, device="cuda")
+            folded = ClipEncoder.from_config(yaml, merged, None, device="cuda")
+            a = np.concatenate([unmerged.encode_text(list(texts)), unmerged.encode_image(paths[0])[None]])
+            b = np.concatenate([folded.encode_text(list(texts)), folded.encode_image(paths[0])[None]])
+            cos[name] = float(((a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min())
+            del unmerged, folded
+        if not cos["fp32"] > 0.9999:
+            raise AssertionError(f"phase 13 (b) merged vs unmerged encoder: min cosine {cos}")
+        log(f"phase 13 (b) merged weights vs the unmerged encoder (5 texts, 1 image): min cosine fp32 "
+            f"{cos['fp32']:.7f}, bf16 compute {cos['bf16']:.7f}")
+        run("tokenizer.cli", tokenizer_cli, ["--csv", val_csv, "--merges", "200", "--out", os.path.join(tmp, "bpe")],
+            lambda vm, p: f"{len(vm[1])} merges, vocab {len(vm[0])}")
+        run("models.cli load", models_cli, ["load", *E],
+            lambda o, p: f"dim {o['dim']}, norm {o['norm']:.4f}" if o["dim"] == enc.arch.projection_dim
+            else _fail("load"))
+        run("models.cli lora-inference (fp32 compute)", models_cli,
+            ["lora-inference", "--csv", val_csv, "--clip-config", yaml32, "--weights", weights, "--lora", adapter,
+             "--device", "cuda"],
+            lambda o, p: f"ranks {o['ranks']}, merged-vs-unmerged cosine {o['cosine']:.6f}")
+        labels = _heldout_labels(tmp)
+        t = time.perf_counter()
+        pooled = run("models.yolo.cli heldout", yolo_cli, [
+            "heldout", "--labels", labels, "--reference-root", tmp, "--init-weights", synth,
+            "--out", os.path.join(tmp, "heldout.json"), "--per-image", "8", "--epochs", "1", "--folds", "2",
+            "--batch-size", "8", "--workdir", os.path.join(tmp, "heldout"), "--device", "cuda"],
+            lambda o, p: f"{o['num_unique_photos']} unique photos, {len(o['folds'])} folds"
+            if o["num_unique_photos"] == 5 and o["num_images"] == 5 else _fail("heldout"))
+        log(f"phase 13 (b) heldout pooled ({time.perf_counter() - t:.1f} s): "
+            f"{json.dumps({k: v for k, v in pooled.items() if k != 'folds'})}")
+        if len(idx) != len(texts):
+            raise AssertionError("phase 13 (b): custom index")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 13 (b): {time.perf_counter() - t0:.1f} s")
+
+
+def _fail(what: str):
+    raise AssertionError(f"phase 13 (b) {what}")
+
+
 def main() -> int:
     if "--phase11-rank" in sys.argv:  # a spawned rank of phase 11
         i = sys.argv.index("--phase11-rank")
@@ -4070,6 +4524,7 @@ def main() -> int:
         print("chip_smoke: the clip_lora_match_tpu_torch package is not beside this script",
               file=sys.stderr)
         return 2
+    from clip_lora_match_tpu_torch.ops import approx_topk as ops_approx
     from clip_lora_match_tpu_torch.ops import attention_small as ops_attn
     from clip_lora_match_tpu_torch.ops import flash_attention as ops_flash
     from clip_lora_match_tpu_torch.ops import lora_matmul as ops_lora
@@ -4114,14 +4569,22 @@ def main() -> int:
         results["mlp_fused"] = check_mlp_fused(torch, ops_mlp, gen)
     if only is None or "flash_attention" in only:
         results["flash_attention"] = check_flash(torch, ops_flash, gen)
+    if only is None or "approx_topk" in only:
+        results["approx_topk"] = check_approx(torch, ops_approx, ops_topk, gen)
     torch.cuda.empty_cache()
     for name, (rows, _) in results.items():
         for row in rows:
             log(f"{name} {row['shape']}: kernel_ms {row['ms']:.5f} device_ms {fmt(row['device_ms'])} "
                 f"plain_ms {row['plain_ms']:.5f} library_ms {fmt(row['library_ms'])} "
                 f"library_device_ms {fmt(row['library_device_ms'])} bound_ms {row['bound_ms']:.5f} "
-                f"({row['bound_by']}) max_abs_err {row['max_abs_err']:.3e} [{card}]")
+                f"({row['bound_by']}) max_abs_err {row['max_abs_err']:.3e}"
+                + (f" span_ms {fmt(row['span_ms'])} library_span_ms {fmt(row['library_span_ms'])} select_ms "
+                   f"{row['select_ms']:.5f} select_device_ms {fmt(row['select_device_ms'])} select_span_ms "
+                   f"{fmt(row['select_span_ms'])} exact_ms {row['exact_ms']:.5f} recall {row['recall']:.4f}"
+                   if "recall" in row else "")
+                + f" [{card}]")
     if only is not None:
+        log(f"device readings refused (torch.profiler records incomplete): {len(DEVICE_GAPS)}")
         log(card)
         return 0
 
@@ -4144,14 +4607,14 @@ def main() -> int:
             files = (loader, *file_corpus(tmp7))
             log(f"phase 7 files: {len(files[1])} renders (224^2, quality 92) and {len(files[2])} "
                 f"photos (1200x1600, quality 90) written in {time.perf_counter() - t:.2f} s")
-        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8", "9", "10", "11"))
+        l14 = l14_path(torch, card, texts, images, paths, files, w8a8=stop_after in (None, "8", "9", "10", "11", "12"))
         for name in OFF_BY_DEFAULT:
             counts[name] = l14[name]
         torch.cuda.empty_cache()
         crop, http = crop_http_path(torch, card, enc, index, texts, paths, lat3)
         if files is not None:
             image_files_path(torch, card, enc, files)
-        if stop_after in (None, "8", "9", "10", "11"):
+        if stop_after in (None, "8", "9", "10", "11", "12"):
             torch.cuda.empty_cache()
             w8a8_path(torch, card, enc, texts, images, index, lat3)
     finally:
@@ -4161,7 +4624,7 @@ def main() -> int:
     eval_counts = {name: 0 for name in KERNELS}
     axis_counts = {name: 0 for name in KERNELS}
     model_counts = {name: 0 for name in KERNELS}
-    if stop_after in (None, "9", "10", "11"):
+    if stop_after in (None, "9", "10", "11", "12"):
         tmp9 = tempfile.mkdtemp(prefix="chip_smoke_p9_")
         try:
             torch.cuda.empty_cache()
@@ -4171,12 +4634,19 @@ def main() -> int:
                 eval_counts = evaluation_path(torch, card, index, tmp9)
         finally:
             shutil.rmtree(tmp9, ignore_errors=True)
-    if stop_after in (None, "11"):
+    if stop_after in (None, "11", "12"):
         torch.cuda.empty_cache()
         axis_counts = data_axis_path(torch, card, enc, texts, images)
-    if stop_after is None:
+    if stop_after in (None, "12"):
         torch.cuda.empty_cache()
         model_counts = model_axes_path(torch, card, enc)
+    approx_counts = {name: 0 for name in KERNELS}
+    if stop_after is None:
+        torch.cuda.empty_cache()
+        approx_counts, _ = approx_path(torch, card, enc, index, texts, gen)
+        counts["approx_topk"] = approx_counts["approx_topk"]
+        torch.cuda.empty_cache()
+        entry_points_path(torch, card, enc, texts, paths)
 
     table = []
     for name, (rows, worst) in results.items():
@@ -4199,12 +4669,21 @@ def main() -> int:
             "launches_phase11": axis_counts[name],
             # phase 12's counted runs, every rank: the TP / SP / PP serving encodes and sharded steps
             "launches_phase12": model_counts[name],
+            # phase 13 (a)'s counted run: 15 text requests through SearchIndex(approximate=True)
+            "launches_phase13": approx_counts[name],
         })
+        if "recall" in row:  # approx_topk: the whole selection beside the exact route
+            table[-1].update({key: row[key] for key in (
+                "span_ms", "library_span_ms", "select_ms", "select_device_ms", "select_span_ms", "select_plain_ms",
+                "select_library_ms", "exact_ms", "recall",
+                "L", "lg")})
         if name in bwd:  # phase 9 (a): the backward (plain fp32 products) at the fp32 image-tower shape
             b = bwd[name][0]
             table[-1].update(backward_shape=b["shape"], backward_ms=b["ms"], backward_device_ms=b["device_ms"],
                              backward_plain_ms=b["plain_ms"], backward_bound_ms=b["bound_ms"],
                              backward_bound_by=b["bound_by"], backward_max_rel_err=b["max_rel_err"])
+    log(f"device readings refused (torch.profiler records incomplete): {len(DEVICE_GAPS)} "
+        f"{json.dumps(dict(collections.Counter(DEVICE_GAPS)))}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     log(card)

@@ -8,6 +8,7 @@ Every wrapper counts the launches of its kernel in a plain integer attribute
 """
 
 from clip_lora_match_tpu_torch.ops import (
+    approx_topk,
     attention_small,
     flash_attention,
     lora_matmul,
@@ -24,6 +25,7 @@ KERNEL_WRAPPERS = {
     "tilemax_sup_q8": retrieval_topk.tilemax_sup_q8,
     "mlp_fused": mlp_fused.mlp_fused,
     "flash_attention": flash_attention.flash_attention,
+    "approx_topk": approx_topk.approx_topk,
 }
 
 

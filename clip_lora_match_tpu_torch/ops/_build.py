@@ -28,7 +28,7 @@ NVCC_FLAGS = (
 )
 KERNEL_SOURCES = (
     "attention_small", "lora_matmul", "retrieval_topk", "retrieval_tilemax",
-    "mlp_fused", "flash_attention",
+    "mlp_fused", "flash_attention", "retrieval_binmax",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,9 @@
 Shape-validated queries, top-k results with their metadata; the index stays
 on its device between calls and the encoder is injected. ``quantize="int8"``
 serves from a per-row int8 copy of the index (``topk_retrieve_q8``), cached
-on the row count and extended by the appended rows only.
+on the row count and extended by the appended rows only, and takes
+precedence over ``approximate``; ``approximate=True`` selects through
+``ops.approx_topk`` at ``recall_target``.
 """
 
 from __future__ import annotations
@@ -39,19 +41,18 @@ class SearchIndex:
         encoder: Optional[ClipEncoder] = None,
         dim: int = 512,
         approximate: bool = False,
+        recall_target: float = 0.95,
         quantize: str = "none",
         device: str | torch.device = "cuda",
     ):
         if isinstance(index, (str, os.PathLike)):
             index = EmbeddingIndex.load(str(index), dim=dim, device=device)
-        if approximate:
-            # lax.approx_max_k's recall-target selection has no PyTorch
-            # counterpart with the same semantics
-            raise NotImplementedError("approximate=True is not ported; search is exact")
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
         self.index = index
         self.encoder = encoder
+        self.approximate = approximate
+        self.recall_target = recall_target
         self.quantize = quantize
         self._q8: Optional[tuple] = None  # (rows, values, scales)
 
@@ -80,7 +81,8 @@ class SearchIndex:
             q = torch.as_tensor(np.atleast_2d(queries), dtype=torch.float32, device=vq.device)
             s, i = topk_retrieve_q8(q, vq, sc, k)
             return s.cpu().numpy(), i.cpu().numpy()
-        s, i = top_k_similar(queries, self.index.embeddings, k, assume_normalized=True)
+        s, i = top_k_similar(queries, self.index.embeddings, k, assume_normalized=True,
+                             approximate=self.approximate, recall_target=self.recall_target)
         return np.atleast_2d(s), np.atleast_2d(i)
 
     @classmethod
@@ -90,9 +92,11 @@ class SearchIndex:
         encoder: Optional[ClipEncoder] = None,
         dim: int = 512,
         approximate: bool = False,
+        recall_target: float = 0.95,
         device: str | torch.device = "cuda",
     ) -> "SearchIndex":
-        return cls(EmbeddingIndex.load(path, dim=dim, device=device), encoder, approximate=approximate)
+        return cls(EmbeddingIndex.load(path, dim=dim, device=device), encoder,
+                   approximate=approximate, recall_target=recall_target)
 
     def _results(self, scores, idx) -> list[SearchResult]:
         out = []

@@ -5,6 +5,8 @@ On CUDA every search goes through ``ops.retrieval_topk.topk_retrieve_auto``
 at every N (the JAX package's ``n >= 2048`` gate was a TPU VMEM measurement
 and is not carried over). On the CPU the plain path is the JAX package's
 CPU path: normalize, one product, exact top-k (ties to the lower id).
+``approximate=True`` selects through ``ops.approx_topk`` (XLA's ApproxTopK
+binning; the bin-max kernel on CUDA).
 """
 
 from __future__ import annotations
@@ -33,10 +35,14 @@ def top_k_similar(
     candidates: torch.Tensor,
     k: int = 5,
     assume_normalized: bool = False,
+    approximate: bool = False,
+    recall_target: float = 0.95,
 ) -> tuple[np.ndarray, np.ndarray]:
     """→ (scores, indices) as numpy, k clamped to N; ``k == 0`` gives empty
     results and ``k < 0`` raises (``lax.top_k``'s contract in the JAX
-    package)."""
+    package). ``approximate=True`` trades recall for speed at
+    ``recall_target`` (the expected recall of the exact top-k;
+    ``recall_target=1.0`` is exact)."""
     n = candidates.shape[0]
     if n == 0:
         return np.zeros((0,), np.float32), np.zeros((0,), np.int32)
@@ -46,7 +52,12 @@ def top_k_similar(
     query = torch.as_tensor(query, dtype=torch.float32, device=candidates.device)
     single = query.dim() == 1
     q2 = torch.atleast_2d(query)
-    if candidates.device.type == "cuda":
+    if approximate:
+        from clip_lora_match_tpu_torch.ops.approx_topk import approx_topk
+
+        cand = candidates if assume_normalized else l2_normalize(candidates.float())
+        scores, idx = approx_topk(q2, cand, k, recall_target)
+    elif candidates.device.type == "cuda":
         from clip_lora_match_tpu_torch.ops.retrieval_topk import topk_retrieve_auto
 
         cand = candidates if assume_normalized else l2_normalize(candidates.float())

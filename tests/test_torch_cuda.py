@@ -25,8 +25,10 @@ pass-1 tile-max kernels on both bodies of their plan (Q from 1 to 130 across
 the switch at 9, D from 64 to 1024, tiles 8 and 16 on the mma body and odd
 tiles on the CUDA-core body, N no multiple of a tile, a round or a group,
 pad rows scoring 0, group maxima equal to the maxima of the kernel's own tile
-maxima, the two-pass route against the plain route at Q = 64), and the
-wrappers' refusals. Each kernel test asserts that the wrapper's launch
+maxima, the two-pass route against the plain route at Q = 64), the bin-max
+kernel of approximate top-k on both bodies (Q from 1 to 130 across the
+switch at 17, one split and many, N no multiple of L, rows repeated inside
+and across bins), and the wrappers' refusals. Each kernel test asserts that the wrapper's launch
 counter moved. The YOLO crop stage (no kernel of its own: cuDNN convs) is
 held against its CPU run: the committed detector in fp32 and bf16,
 ``nms_fixed``, the device crop, and the fused search through
@@ -485,7 +487,7 @@ def test_launch_counters_count_kernel_launches(gen):
     assert ops.launch_counts() == {
         "attention_small": 1, "lora_matmul": 0, "topk_retrieve": 1,
         "tilemax": 1, "tilemax_sup": 0, "tilemax_sup_q8": 0,
-        "mlp_fused": 0, "flash_attention": 1,
+        "mlp_fused": 0, "flash_attention": 1, "approx_topk": 0,
     }
 
 
@@ -514,7 +516,7 @@ def test_a_cpu_encoder_leaves_the_card_encoders_kernels_on(gen):
     per_pair = {  # 2 towers x 2 layers (grouped q/k/v + out_proj); flash and the fused MLP are off by default
         "attention_small": 4, "lora_matmul": 8, "topk_retrieve": 0,
         "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
-        "mlp_fused": 0, "flash_attention": 0,
+        "mlp_fused": 0, "flash_attention": 0, "approx_topk": 0,
     }
     ops.reset_launch_counts()
     for dev in ("cuda", "cpu", "cuda"):
@@ -1683,3 +1685,101 @@ def test_model_axis_executors_at_size_one_match_the_transformer_on_cuda(gen, kin
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
     else:
         assert _normrel(got.float(), ref.float()) <= 2e-2
+
+
+# -- approximate top-k: the bin-max kernel ------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,N,D,k,r", [(1, 44_446, 512, 10, 0.95), (3, 20_011, 768, 5, 0.9),
+                                       (16, 44_446, 512, 100, 0.99), (17, 30_000, 512, 10, 0.9),
+                                       (64, 44_446, 768, 10, 0.95), (130, 9_001, 512, 5, 0.9),
+                                       (64, 4_096, 24, 2, 0.5), (2, 1_000, 512, 5, 0.5)])
+def test_binmax_kernel(gen, Q, N, D, k, r, dtype):
+    """Every bin's id is a row of that bin whose plain score is the plain
+    maximum (within the sum-order / 3xTF32 tolerance), and its value equals
+    the maximum within the same tolerance; the body is the plan's."""
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+
+    L, _ = AT.reduction_bins(N, k, r)
+    assert L < N
+    index = _unit_index(gen, N, D, dtype)
+    qc = R._normalize_div(_rand(gen, Q, D)).to(dtype)
+    before = dict(AT.approx_topk.bodies)
+    n0 = AT.approx_topk.launches
+    vals, ids = AT.binmax(qc, index, L)
+    torch.cuda.synchronize()
+    assert AT.approx_topk.launches == n0 + 1
+    p = AT.binmax_plan(Q, N, D, dtype, L, _build.sm_count(qc.device))
+    assert {b: AT.approx_topk.bodies[b] - before[b] for b in before} == {
+        b: int(b == p.body) for b in before}
+    rv, ri = AT.binmax_plain(qc, index, L)
+    assert vals.shape == ids.shape == (Q, L) and ids.dtype == torch.int32
+    torch.testing.assert_close(vals, rv, atol=2e-6, rtol=0)
+    assert ((ids.long() % L) == torch.arange(L, device="cuda")).all() and (ids < N).all()
+    sims = qc.float() @ index.float().T
+    torch.testing.assert_close(sims.gather(1, ids.long()), rv, atol=2e-6, rtol=0)
+    # where the two best rows of a bin are apart, the ids are equal
+    W = -(-N // L)
+    pad = torch.nn.functional.pad(sims, (0, W * L - N), value=-float("inf")).view(Q, W, L)
+    top2 = pad.topk(2, dim=1).values
+    apart = (top2[:, 0] - top2[:, 1]) > 1e-5
+    assert torch.equal(ids[apart], ri[apart])
+
+
+@pytest.mark.parametrize("Q", [1, 64])
+def test_binmax_ties_go_to_the_lowest_row(gen, Q):
+    """Rows repeated in later windows of the same bin, across splits: the
+    kernel keeps the first, bit for bit as the plain version."""
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+
+    N, D, L = 40_960, 512, 256
+    index = _unit_index(gen, N, D)
+    index[L::L] = index[0]  # bin 0: every window holds row 0
+    index[5 * L + 9] = index[9]
+    qc = torch.cat([index[:1], index[9:10], R._normalize_div(_rand(gen, Q - 2 if Q > 2 else 0, D))])[:Q]
+    vals, ids = AT.binmax(qc.contiguous(), index, L)
+    rv, ri = AT.binmax_plain(qc, index, L)
+    torch.cuda.synchronize()
+    assert AT.binmax_plan(Q, N, D, torch.float32, L, _build.sm_count(qc.device)).splits > 1
+    assert ids[0, 0] == ri[0, 0] == 0
+    if Q > 1:
+        assert ids[1, 9] == ri[1, 9] == 9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,k,r", [(1, 10, 0.95), (64, 10, 0.9), (8, 100, 0.99)])
+def test_approx_topk_on_the_card(gen, Q, k, r, dtype):
+    """The whole selection on the card against the plain selection: scores
+    within 2e-6, ids tie-aware, and the recall against the exact route."""
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+
+    index = _unit_index(gen, 44_446, 512, dtype)
+    queries = _rand(gen, Q, 512)
+    n0 = AT.approx_topk.launches
+    s, i = AT.approx_topk(queries, index, k, r)
+    assert AT.approx_topk.launches == n0 + 1
+    rs, ri = AT.approx_topk_plain(queries, index, k, r)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, rs, atol=2e-6, rtol=0)
+    _ids_equal_where_apart(s, i, rs, ri, tol=2e-6)
+    _, ei = R.topk_retrieve_auto(queries, index, k)
+    recall = sum(len(set(a) & set(b)) for a, b in zip(i.tolist(), ei.tolist())) / (Q * k)
+    assert recall >= r - 0.1
+    # L == N and k == 1 take the exact route and launch nothing
+    AT.approx_topk(queries, index, k, 1.0)
+    AT.approx_topk(queries, index, 1, r)
+    assert AT.approx_topk.launches == n0 + 1
+
+
+def test_binmax_refusals(gen):
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+
+    index = _unit_index(gen, 2048, 64)
+    qc = R._normalize_div(_rand(gen, 2, 64))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        AT.binmax(qc, index, 100)
+    with pytest.raises(ValueError, match="16-byte"):
+        AT.binmax(qc[:, :62].contiguous(), index[:, :62], 128)
+    with pytest.raises(TypeError):
+        AT.binmax(qc.bfloat16(), index, 128)

@@ -172,8 +172,9 @@ def test_cpu_tensors_launch_nothing():
     t_ops.KERNEL_WRAPPERS["mlp_fused"](
         torch.randn(4, 8), torch.randn(8, 16), torch.randn(16), torch.randn(16, 8), torch.randn(8)
     )
+    t_ops.KERNEL_WRAPPERS["approx_topk"](torch.randn(2, 16), torch.randn(3000, 16), 10, 0.9)
     assert t_ops.launch_counts() == {
         "attention_small": 0, "lora_matmul": 0, "topk_retrieve": 0,
         "tilemax": 0, "tilemax_sup": 0, "tilemax_sup_q8": 0,
-        "mlp_fused": 0, "flash_attention": 0,
+        "mlp_fused": 0, "flash_attention": 0, "approx_topk": 0,
     }

@@ -120,8 +120,9 @@ def test_search_index_front_end():
     idx = TIndex(_unit_rows(rng, 50), [f"p{i}" for i in range(50)], device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         TSearch(idx, quantize="int4")
-    with pytest.raises(NotImplementedError, match="approximate"):
-        TSearch(idx, approximate=True)
+    approx = TSearch(idx, approximate=True, recall_target=0.9)  # accepted: ops.approx_topk
+    assert approx.approximate and approx.recall_target == 0.9
+    assert approx.search_with_embedding(idx.embeddings_np()[7], k=3)[0].index == 7
     with pytest.raises(RuntimeError, match="encoder"):
         TSearch(idx).search_by_text("tas")
     s = TSearch(idx)
