@@ -14,7 +14,8 @@ one NVIDIA GPU.
     python3 chip_smoke.py --stop-after 11        # phases 1-11 (an A/B without the model axes)
     python3 chip_smoke.py --stop-after 12        # phases 1-12 (an A/B without approximate top-k and
                                                  # the last entry points)
-    python3 chip_smoke.py --only approx_topk     # build and check the bin-max kernel (phase 2 only)
+    python3 chip_smoke.py --only approx_topk     # the bin-max kernel and the fused selection: phase 2's
+                                                 # rows and phase 13 (a)'s over a seeded index
 
 Phases (any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch/CUDA versions, and the
@@ -29,7 +30,10 @@ Phases (any failure raises and exits non-zero):
    and fp32 pass 1 on its mma body at the 3xTF32 rate they compute at)
    (the bin-max kernel of approximate top-k, csrc/retrieval_binmax.cu, at
    Q = 1 and 64 over a seeded 44,446-row index in fp32 and bf16, k = 10, r =
-   0.95, with its recall and the exact route's time beside it)
+   0.95, each row naming the body it took and the fused selection's launches
+   a search, the selection bit-equal to the sort of the kernel's bins, with
+   its recall and the exact route's time beside it; with --only approx_topk
+   also phase 13 (a)'s rows over a seeded index of phase 3's size)
    (the pass-1 tile-max kernels over 524,298- and 1,048,586-row indexes at
    Q = 1, 16 (tilemax) and 64, each row naming the body its plan took, both
    bodies of tilemax (bf16, fp32) and of tilemax_sup_q8 (int8) at Q = 8, 16
@@ -194,7 +198,9 @@ Phases (any failure raises and exits non-zero):
    (XLA's ApproxTopK partial reduce, ops/approx_topk.py) against its plain
    version over phase 3's 44,446 rows at Q = 1 and 64, k = 5, 10, 100, r =
    0.9, 0.95, 0.99, and over a 524,298-row bf16 arena at Q = 64, k = 10,
-   r = 0.95: L and lg, the bins' maxima and ids, the top-k tie-aware, the
+   r = 0.95 and k = 256, r = 0.99 (the two-launch selection): L and lg, the
+   body, the bins' maxima and ids, the fused selection bit-equal to the sort
+   of the kernel's bins and its launches a search, the top-k tie-aware, the
    recall against the exact route (>= r - 0.05 over each (k, r)'s 65
    queries), and the wrapper's, the
    kernel's, the plain version's, the exact route's and one library call's
@@ -203,7 +209,8 @@ Phases (any failure raises and exits non-zero):
    queued behind a spin kernel; the profiler's window check); then 15 text
    requests through
    SearchIndex(approximate=True) over phase 3's index, counted (approx_topk
-   15, topk_retrieve 0), each finding its own row; (b) at full ViT-B/32
+   15, topk_retrieve 0, 15 fused selection launches, no sort), each finding
+   its own row; (b) at full ViT-B/32
    width over phase 3's weights and adapter saved to a temporary .npz and
    adapter directory, from a temporary working directory: index.cli
    build-custom and build-text, every services.cli demo once in one-shot
@@ -636,6 +643,27 @@ def assert_ids_tie_aware(torch, what, i, rs, ri, tol):
             raise AssertionError(f"{what}: ids differ outside ties")
 
 
+def assert_ids_score_ties(torch, what, i, ri, rs, qc, index, rv, tol):
+    """Ids of a binned selection (row j in bin j mod L, ``rv`` the plain
+    (Q, L) bin maxima) equal to the plain selection's wherever the row
+    returned does not tie it: where they differ, the returned row's own
+    score (fp32, from the index) is within ``tol`` of its bin's plain
+    maximum and of the plain score at that rank. That admits another row of
+    a bin whose two best rows tie, and a bin whose maximum ties the plain
+    one at that rank (neighbours swapped, or the k-th bin), and nothing
+    else."""
+    diff = i != ri
+    if diff.any():
+        own = (qc.float()[:, None, :] * index[i.long()].float()).sum(-1)
+        best = rv.gather(1, i.long() % rv.shape[1])
+        bad = diff & (((own - rs).abs() > tol) | ((own - best).abs() > tol))
+        if bad.any():
+            at = bad.nonzero()[:4].tolist()
+            raise AssertionError(f"{what}: ids differ outside ties at (query, rank) {at}: ids "
+                                 f"{[i[q, r].item() for q, r in at]} against {[ri[q, r].item() for q, r in at]}, own "
+                                 f"scores {[own[q, r].item() for q, r in at]} against {[rs[q, r].item() for q, r in at]}")
+
+
 def check_pass1(torch, R, gen):
     """The three tile-max kernels against their plain versions, and the
     two-pass routes through them against the plain route. Each kernel's
@@ -763,12 +791,19 @@ def approx_row(torch, AT, R, index, queries, k: int, r: float, where: str) -> di
     """The bin-max kernel (``ops/approx_topk.py``) against its plain version
     on one shape, and the whole approximate selection against the plain
     selection: every bin's id is a row of its bin scoring the plain maximum
-    and the values agree within 2e-6 (sum order; 3xTF32 on the fp32 mma
-    body); the top-k scores within 2e-6, ids tie-aware. Returns the row:
-    L, lg, the body, the recall against the exact route, the kernel's
-    (``binmax``), its plain version's and the library's times and its bound,
-    then the whole selection's (``approx_topk``, ``approx_topk_plain``, the
-    library's with a top-k) beside the exact route's."""
+    and the values agree within 2e-6 (sum order; 3xTF32 on the fp32 wgmma
+    body); the fused selection over the kernel's bins (``select_bins``) and
+    the whole search bit-equal to ``_select_bins`` over the kernel's bins;
+    the top-k scores within 2e-6 of the plain selection, and each id either
+    the plain selection's or a row whose own score ties, within 2e-6, both
+    its bin's plain maximum and the plain score at that rank (a bin's two
+    best rows, or two bins' maxima, can tie: sum order picks one).
+    Returns the row: L, lg, the body, the selection's launches per search,
+    the recall against the exact route, the kernel's (``binmax``), its plain
+    version's and the library's times and its bound, then the whole
+    selection's (``approx_topk``, ``approx_topk_plain``, the library's with a
+    top-k) beside the exact route's, device times as spans of CUDA events.
+    """
     Q, D = queries.shape
     N = index.shape[0]
     L, lg = AT.reduction_bins(N, k, r)
@@ -787,13 +822,26 @@ def approx_row(torch, AT, R, index, queries, k: int, r: float, where: str) -> di
     if not bin_err <= 2e-6 or not ((ids.long() % L) == torch.arange(L, device="cuda")).all():
         raise AssertionError(f"binmax {what}: bin maxima err {bin_err} or ids outside their bins")
     del sims
+    ws, wi = AT._select_bins(vals, ids, k)
+    s0, n0 = AT.approx_topk.select_launches, AT.approx_topk.sorts
     s, i = AT.approx_topk(queries, index, k, r)
+    torch.cuda.synchronize()
+    launches, sorts = AT.approx_topk.select_launches - s0, AT.approx_topk.sorts - n0
+    if not (torch.equal(s, ws) and torch.equal(i, wi)):
+        raise AssertionError(f"approx_topk {what}: the fused search differs from _select_bins over the bins")
+    if AT.select_plan(L, k) is not None:
+        fs, fi = AT.select_bins(vals, ids, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(fs, ws) and torch.equal(fi, wi)):
+            raise AssertionError(f"select_bins {what}: not bit-equal to _select_bins over the kernel's bins")
+        if sorts != 0:
+            raise AssertionError(f"approx_topk {what}: {sorts} sorts at k <= {AT.K_MAX}")
     rs, ri = AT.approx_topk_plain(queries, index, k, r)
     torch.cuda.synchronize()
     err = (s - rs).abs().max().item()
     if not err <= 2e-6:
         raise AssertionError(f"approx_topk {what}: score err {err}")
-    assert_ids_tie_aware(torch, f"approx_topk {what}", i, rs, ri, 2e-6)
+    assert_ids_score_ties(torch, f"approx_topk {what}", i, ri, rs, qc, index, rv, 2e-6)
     _, ei = R.topk_retrieve_auto(queries, index, k)
     recall = sum(len(set(a) & set(b)) for a, b in zip(i.tolist(), ei.tolist())) / (Q * k)
     qn = qc.float()
@@ -811,7 +859,19 @@ def approx_row(torch, AT, R, index, queries, k: int, r: float, where: str) -> di
     kind = {"mma": "3xtf32" if elem == 4 else "bf16", "cuda_core": "fp32"}[p.body]
     b_ms, b_by = bound_ms(N * D * elem + Q * D * elem + Q * L * 8, 2 * Q * N * D, kind)
     select = lambda: AT.approx_topk(queries, index, k, r)  # noqa: E731
-    return dict(shape=f"{what} [{p.body} qb={p.qb} splits={p.splits} grid={'x'.join(map(str, p.grid))}]",
+    exact = lambda: R.topk_retrieve_auto(queries, index, k)  # noqa: E731
+    sel = {}
+    if AT.select_plan(L, k) is not None:
+        # the fused selection alone over the kernel's (Q, L) bins (one split),
+        # beside the sort it replaces and torch.topk; bound: the bins read once
+        # and the (Q, k) answer written once
+        sel = dict(fused_select_span_ms=span_ms(torch, lambda: AT.select_bins(vals, ids, k)),
+                   fused_select_plain_span_ms=span_ms(torch, lambda: AT._select_bins(vals, ids, k)),
+                   fused_select_library_span_ms=span_ms(torch, lambda: torch.topk(vals, k, dim=1)),
+                   fused_select_bound_ms=(Q * L * 8 + Q * k * 8) / HBM_BYTES_PER_S * 1e3)
+    plan = (f"{p.body} qb={p.qb} bins={p.bins} splits={p.splits} grid={'x'.join(map(str, p.grid))} "
+            f"rows={p.rows} stages={p.stages}")
+    return dict(shape=f"{what} [{plan}] selection launches a search {launches}",
                 **timings(torch, lambda: AT.binmax(qc, index, L), lambda: AT.binmax_plain(qc, index, L), library,
                           "binmax_", b_ms),
                 span_ms=span_ms(torch, lambda: AT.binmax(qc, index, L)), library_span_ms=span_ms(torch, library),
@@ -820,8 +880,23 @@ def approx_row(torch, AT, R, index, queries, k: int, r: float, where: str) -> di
                 select_span_ms=span_ms(torch, select),
                 select_plain_ms=cuda_ms(torch, lambda: AT.approx_topk_plain(queries, index, k, r)),
                 select_library_ms=cuda_ms(torch, library_select),
-                exact_ms=cuda_ms(torch, lambda: R.topk_retrieve_auto(queries, index, k)),
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(err, bin_err), recall=recall, L=L, lg=lg)
+                exact_ms=cuda_ms(torch, exact), exact_span_ms=span_ms(torch, exact),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(err, bin_err), recall=recall, L=L, lg=lg,
+                body=p.body, select_launches=launches, sorts=sorts, **sel)
+
+
+def approx_line(row: dict) -> str:
+    """One phase-13 (a) row's log line: the kernel, the whole search, the exact route."""
+    return (f"{row['shape']}: binmax wall ms {row['ms']:.5f} (device {fmt(row['device_ms'])}, span "
+            f"{fmt(row['span_ms'])}), plain {row['plain_ms']:.5f}, library {fmt(row['library_ms'])} (device "
+            f"{fmt(row['library_device_ms'])}, span {fmt(row['library_span_ms'])}), bound {row['bound_ms']:.5f} "
+            f"({row['bound_by']}); approx_topk wall ms {row['select_ms']:.5f} (device {fmt(row['select_device_ms'])}, "
+            f"span {fmt(row['select_span_ms'])}), plain {row['select_plain_ms']:.5f}, library "
+            f"{row['select_library_ms']:.5f}, exact route {row['exact_ms']:.5f} (span {fmt(row['exact_span_ms'])}); "
+            f"recall {row['recall']:.4f}; max err {row['max_abs_err']:.3e}"
+            + (f"; fused selection over the bins span {fmt(row['fused_select_span_ms'])} (sort "
+               f"{fmt(row['fused_select_plain_span_ms'])}, torch.topk {fmt(row['fused_select_library_span_ms'])}, "
+               f"bound {row['fused_select_bound_ms']:.5f})" if "fused_select_span_ms" in row else ""))
 
 
 def check_approx(torch, AT, R, gen):
@@ -4240,15 +4315,50 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 APPROX_GRID = [(Q, k, r) for Q in (1, 64) for k in (5, 10, 100) for r in (0.9, 0.95, 0.99)]
+# the 524,298-row bf16 arena's rows: search_batch's, and the two-launch selection (L = 32,896)
+ARENA_GRID = [(64, 10, 0.95), (64, 256, 0.99)]
+
+
+def approx_grid(torch, card, emb, gen, where: str) -> list:
+    """Phase 13 (a)'s rows: the bin-max kernel and the whole approximate
+    selection over ``emb`` (44,446 fp32 rows) at every (Q, k, r) of
+    APPROX_GRID and over a 524,298-row bf16 arena (ARENA_GRID), recall pooled
+    over each (k, r)'s 65 queries >= r - 0.05. Logged and returned."""
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+    from clip_lora_match_tpu_torch.ops import retrieval_topk as R
+
+    rows = []
+    for Q, k, r in APPROX_GRID:
+        q = torch.randn(Q, emb.shape[1], device="cuda", generator=gen)
+        rows.append(approx_row(torch, AT, R, emb, q, k, r, where))
+    arena = torch.nn.functional.normalize(
+        torch.randn(BF16_ROWS + 10, emb.shape[1], device="cuda", generator=gen), dim=1).to(torch.bfloat16)
+    for Q, k, r in ARENA_GRID:
+        q = torch.randn(Q, emb.shape[1], device="cuda", generator=gen)
+        rows.append(approx_row(torch, AT, R, arena, q, k, r, "bf16 arena"))
+    del arena
+    for row in rows:
+        log(f"phase 13 (a) {approx_line(row)} [{card}]")
+    # recall is an expectation: each (k, r) pooled over its 65 queries
+    for k, r in sorted({(k, r) for _, k, r in APPROX_GRID}):
+        pooled = [(row["recall"], Q) for row, (Q, kk, rr) in zip(rows, APPROX_GRID) if (kk, rr) == (k, r)]
+        recall = sum(x * Q for x, Q in pooled) / sum(Q for _, Q in pooled)
+        if not recall >= r - 0.05:
+            raise AssertionError(f"phase 13 (a) k={k} r={r}: recall {recall} over 65 queries < {r - 0.05}")
+    for row, (_, k, r) in zip(rows[len(APPROX_GRID):], ARENA_GRID):
+        if not row["recall"] >= r - 0.05:
+            raise AssertionError(f"phase 13 (a) arena k={k} r={r}: recall {row['recall']} < {r - 0.05}")
+    return rows
 
 
 def approx_path(torch, card, enc, index, texts, gen) -> tuple:
     """Phase 13 (a): the bin-max kernel and the whole approximate selection
     against their plain versions over phase 3's 44,446-row fp32 index (Q 1
     and 64, k 5, 10, 100, r 0.9, 0.95, 0.99) and a 524,298-row bf16 arena
-    (phase 4 (b)'s size: Q = 64, k = 10, r = 0.95), then 15 counted text
-    requests through SearchIndex(approximate=True), each finding its own
-    row (phase 3's text rows). Returns their launches and the rows."""
+    (phase 4 (b)'s size: Q = 64, k = 10, r = 0.95 and k = 256, r = 0.99),
+    then 15 counted text requests through SearchIndex(approximate=True), each
+    finding its own row (phase 3's text rows), each one bin-max launch and
+    one fused selection and no sort. Returns their launches and the rows."""
     from clip_lora_match_tpu_torch import ops
     from clip_lora_match_tpu_torch.ops import approx_topk as AT
     from clip_lora_match_tpu_torch.ops import retrieval_topk as R
@@ -4256,36 +4366,18 @@ def approx_path(torch, card, enc, index, texts, gen) -> tuple:
 
     t0 = time.perf_counter()
     emb = index.embeddings[:INDEX_ROWS + 10]  # phase 3's rows (phase 9 appended its own after them)
-    rows = []
-    for Q, k, r in APPROX_GRID:
-        q = torch.randn(Q, emb.shape[1], device="cuda", generator=gen)
-        rows.append(approx_row(torch, AT, R, emb, q, k, r, "phase 3's index"))
-    arena = torch.nn.functional.normalize(
-        torch.randn(BF16_ROWS + 10, emb.shape[1], device="cuda", generator=gen), dim=1).to(torch.bfloat16)
-    rows.append(approx_row(torch, AT, R, arena, torch.randn(64, emb.shape[1], device="cuda", generator=gen),
-                           10, 0.95, "bf16 arena"))
-    del arena
-    for row in rows:
-        log(f"phase 13 (a) {row['shape']}: binmax wall ms {row['ms']:.5f} (device {fmt(row['device_ms'])}, span "
-            f"{fmt(row['span_ms'])}), plain {row['plain_ms']:.5f}, library {fmt(row['library_ms'])} (device "
-            f"{fmt(row['library_device_ms'])}, span {fmt(row['library_span_ms'])}), bound {row['bound_ms']:.5f} "
-            f"({row['bound_by']}); approx_topk wall ms {row['select_ms']:.5f} (device {fmt(row['select_device_ms'])}, "
-            f"span {fmt(row['select_span_ms'])}), plain {row['select_plain_ms']:.5f}, library "
-            f"{row['select_library_ms']:.5f}, exact route {row['exact_ms']:.5f}; recall {row['recall']:.4f}; "
-            f"max err {row['max_abs_err']:.3e} [{card}]")
-    # recall is an expectation: each (k, r) pooled over its 65 queries
-    for k, r in sorted({(k, r) for _, k, r in APPROX_GRID}):
-        pooled = [(row["recall"], Q) for row, (Q, kk, rr) in zip(rows, APPROX_GRID) if (kk, rr) == (k, r)]
-        recall = sum(x * Q for x, Q in pooled) / sum(Q for _, Q in pooled)
-        if not recall >= r - 0.05:
-            raise AssertionError(f"phase 13 (a) k={k} r={r}: recall {recall} over 65 queries < {r - 0.05}")
+    rows = approx_grid(torch, card, emb, gen, "phase 3's index")
 
     search = SearchIndex(index, enc, approximate=True, recall_target=0.95)
     L, lg = AT.reduction_bins(len(index), 5, 0.95)
     ops.reset_launch_counts()
+    s0, n0 = AT.approx_topk.select_launches, AT.approx_topk.sorts
     res = [search.search_by_text(texts[i % len(texts)], 5) for i in range(15)]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    selects, sorts = AT.approx_topk.select_launches - s0, AT.approx_topk.sorts - n0
+    if (selects, sorts) != (15, 0):
+        raise AssertionError(f"phase 13 (a) 15 requests: {selects} fused selection launches, {sorts} sorts")
     layers = enc.arch.text_layers
     want = {name: 0 for name in counts}
     want.update(approx_topk=15, attention_small=15 * layers, lora_matmul=15 * LORA_PER_LAYER * layers)
@@ -4302,12 +4394,13 @@ def approx_path(torch, card, enc, index, texts, gen) -> tuple:
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
     log(f"phase 13 (a) SearchIndex(approximate=True, recall_target=0.95) over {len(index)} rows (L={L}, "
-        f"lg={lg}): 15 text requests, launches {json.dumps({k: v for k, v in counts.items() if v})}, each "
-        f"its own row first; request latency, median of 10: {statistics.median(lat):.4f} ms [{card}]")
+        f"lg={lg}): 15 text requests, launches {json.dumps({k: v for k, v in counts.items() if v})}, fused "
+        f"selection launches {selects}, sorts {sorts}, each its own row first; request latency, median of 10: "
+        f"{statistics.median(lat):.4f} ms [{card}]")
     qc = R._normalize_div(torch.randn(1, emb.shape[1], device="cuda", generator=gen)).to(emb.dtype)
     profiler_window_check(torch, lambda: AT.binmax(qc, emb, 384), "binmax_core")
     log(f"phase 13 (a): {time.perf_counter() - t0:.1f} s")
-    return counts, rows
+    return {**counts, "select_launches": selects, "sorts": sorts}, rows
 
 
 def _heldout_labels(tmp: str) -> str:
@@ -4571,6 +4664,11 @@ def main() -> int:
         results["flash_attention"] = check_flash(torch, ops_flash, gen)
     if only is None or "approx_topk" in only:
         results["approx_topk"] = check_approx(torch, ops_approx, ops_topk, gen)
+    if only is not None and "approx_topk" in only:
+        # phase 13 (a)'s rows over a seeded index of phase 3's size (an A/B without the main path)
+        seeded = torch.nn.functional.normalize(torch.randn(INDEX_ROWS + 10, 512, device="cuda", generator=gen), dim=1)
+        approx_grid(torch, card, seeded, gen, "seeded 44,446 rows")
+        del seeded
     torch.cuda.empty_cache()
     for name, (rows, _) in results.items():
         for row in rows:
@@ -4580,7 +4678,9 @@ def main() -> int:
                 f"({row['bound_by']}) max_abs_err {row['max_abs_err']:.3e}"
                 + (f" span_ms {fmt(row['span_ms'])} library_span_ms {fmt(row['library_span_ms'])} select_ms "
                    f"{row['select_ms']:.5f} select_device_ms {fmt(row['select_device_ms'])} select_span_ms "
-                   f"{fmt(row['select_span_ms'])} exact_ms {row['exact_ms']:.5f} recall {row['recall']:.4f}"
+                   f"{fmt(row['select_span_ms'])} exact_ms {row['exact_ms']:.5f} exact_span_ms "
+                   f"{fmt(row['exact_span_ms'])} recall {row['recall']:.4f} "
+                   + " ".join(f"{key} {fmt(v)}" for key, v in row.items() if key.startswith("fused_select"))
                    if "recall" in row else "")
                 + f" [{card}]")
     if only is not None:
@@ -4675,8 +4775,12 @@ def main() -> int:
         if "recall" in row:  # approx_topk: the whole selection beside the exact route
             table[-1].update({key: row[key] for key in (
                 "span_ms", "library_span_ms", "select_ms", "select_device_ms", "select_span_ms", "select_plain_ms",
-                "select_library_ms", "exact_ms", "recall",
-                "L", "lg")})
+                "select_library_ms", "exact_ms", "exact_span_ms", "recall", "L", "lg", "body", "select_launches",
+                "sorts")})
+            table[-1].update({key: row[key] for key in row if key.startswith("fused_select")})
+            # phase 13 (a)'s counted run: the fused selection's launches and the sorts beside the 15 searches
+            table[-1].update(select_launches_phase13=approx_counts.get("select_launches"),
+                             sorts_phase13=approx_counts.get("sorts"))
         if name in bwd:  # phase 9 (a): the backward (plain fp32 products) at the fp32 image-tower shape
             b = bwd[name][0]
             table[-1].update(backward_shape=b["shape"], backward_ms=b["ms"], backward_device_ms=b["device_ms"],

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (mlp_fused.cu,
-// lora_matmul.cu), the bulk-copy ring of retrieval_topk.cu and the mma.sync
+// lora_matmul.cu, retrieval_binmax.cu), the bulk-copy rings of
+// retrieval_topk.cu and retrieval_binmax.cu and the mma.sync
 // kernels (flash_attention.cu, retrieval_tilemax.cu): mbarriers, TMA and 1-D
 // bulk loads, cluster addressing, wgmma shared-memory descriptors and fences,
 // the 3xTF32 operand split and the mma.sync products (tf32, bf16, s8), and
@@ -176,19 +177,26 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 (outer, inner) matrix, boxes of box_outer x box_inner,
-// 128-byte swizzle, zeros outside
-bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, int box_inner,
-                int box_outer) {
+// a row-major (outer, inner) matrix of `type` (elements of `elem` bytes),
+// boxes of box_outer x box_inner, 128-byte swizzle, zeros outside
+bool tensor_map_of(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr, int inner,
+                   int outer, int box_inner, int box_outer) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * elem};
   const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same for a bf16 matrix
+bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, int box_inner,
+                int box_outer) {
+  return tensor_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, inner, outer, box_inner,
+                       box_outer);
 }
 
 }  // namespace hopper

@@ -1,8 +1,8 @@
 // Device helpers shared by the retrieval kernels that score index rows
 // against staged queries (retrieval_tilemax.cu, retrieval_binmax.cu): the
-// index types, the 16-byte dot products of the CUDA-core bodies, their warp
-// reduce-scatter, the streamed load and the staged query stride of the mma
-// bodies.
+// index types, the 16-byte dot products of the CUDA-core bodies and their
+// warp reduce-scatter; the streamed load and the staged query stride of
+// retrieval_tilemax.cu's mma body.
 
 #pragma once
 

@@ -228,21 +228,198 @@ def test_approx_topk_contract_and_cpu_launches_nothing():
         A.binmax(q.bfloat16(), index, 256)
 
 
-@pytest.mark.parametrize("Q, body, qb", [(1, "cuda_core", 1), (3, "cuda_core", 4), (8, "cuda_core", 8),
-                                         (16, "cuda_core", 8), (17, "mma", 32), (32, "mma", 32),
-                                         (64, "mma", 64), (200, "mma", 64)])
-def test_binmax_plan(Q, body, qb):
+# the query block at each shape of test_binmax_plan: fp32 D=512, bf16 D=512, fp32 D=768
+@pytest.mark.parametrize("Q, body, qbs", [(1, "cuda_core", (1, 1, 1)), (3, "cuda_core", (4, 4, 4)),
+                                          (8, "cuda_core", (8, 8, 8)), (16, "cuda_core", (8, 8, 8)),
+                                          (17, "mma", (32, 32, 16)), (32, "mma", (32, 32, 16)),
+                                          (64, "mma", (32, 64, 16)), (200, "mma", (32, 64, 16))])
+def test_binmax_plan(Q, body, qbs):
     """The body switch at Q = 17 and the grid at the main path's shapes:
-    the bins in whole slabs, at most one split a window, about one wave."""
-    for N, D, dtype, k, r in ((44_446, 512, torch.float32, 10, 0.95), (524_298, 512, torch.bfloat16, 10, 0.95),
-                              (44_446, 768, torch.float32, 100, 0.9)):
+    the bins in whole slabs, at most one split a window, one block an SM
+    (about one wave), the wgmma body on blocks of up to 64 bf16 or 32 fp32
+    queries (16 from D = 768)."""
+    for (N, D, dtype, k, r), qb in zip(((44_446, 512, torch.float32, 10, 0.95),
+                                        (524_298, 512, torch.bfloat16, 10, 0.95),
+                                        (44_446, 768, torch.float32, 100, 0.9)), qbs):
         L, _ = A.reduction_bins(N, k, r)
         p = A.binmax_plan(Q, N, D, dtype, L, 132)
         assert (p.body, p.qb) == (body, qb)
         W = -(-N // L)
-        assert p.grid == (L // p.bins, p.splits, -(-Q // qb)) and L % p.bins == 0
+        assert p.grid == (L // p.bins, p.splits, -(-Q // p.qb)) and L % p.bins == 0
         assert 1 <= p.splits <= W
         blocks = p.grid[0] * p.grid[1] * p.grid[2]
-        assert p.splits == W or blocks >= (132 if body == "mma" else 264)
-    # rows not of whole 64-byte k-chunks take the CUDA-core body
+        assert p.splits == W or blocks >= 100  # about one wave of 132 SMs
+    # rows not of whole 128-byte slices take the CUDA-core body
     assert A.binmax_plan(64, 4096, 24, torch.float32, 256, 132).body == "cuda_core"
+
+
+# every (k, r) of chip_smoke.py phases 2 and 13 (a), and the two-stage selection's row
+_PHASE_KR = [(5, 0.9), (5, 0.95), (5, 0.99), (10, 0.9), (10, 0.95), (10, 0.99), (100, 0.9), (100, 0.95),
+             (100, 0.99), (256, 0.99)]
+
+
+# the wgmma body's largest query block beside three 32 KB stages (fp32: hi and lo queries)
+_MMA_QB_MAX = {(torch.float32, 512): 32, (torch.float32, 768): 16, (torch.float32, 1024): 16,
+               (torch.bfloat16, 512): 64, (torch.bfloat16, 768): 64, (torch.bfloat16, 1024): 64}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [512, 768, 1024])
+@pytest.mark.parametrize("N", [44_446, 524_298])
+def test_binmax_plan_rules(N, D, dtype):
+    """The plan at every Q of the card tests and every (k, r) of phases 2 and
+    13: the body by Q and slice, the shared memory of ``_core_smem`` /
+    ``_mma_smem`` within 232,448 bytes with at least two ring stages (four
+    for wgmma), splits within the windows and 65,535, the query block and
+    blocks covering the queries, and the selection's chunks holding the
+    candidates."""
+    elem = 4 if dtype == torch.float32 else 2
+    rb = D * elem
+    for k, r in _PHASE_KR:
+        L, _ = A.reduction_bins(N, k, r)
+        if L == N or k > L:
+            continue
+        W = -(-N // L)
+        for Q in (1, 2, 8, 16, 17, 32, 64, 65, 130):
+            p = A.binmax_plan(Q, N, D, dtype, L, 132)
+            assert p.body == ("mma" if Q >= A.BINMAX_MMA_MIN_Q else "cuda_core")
+            assert p.smem <= 232_448 and 1 <= p.splits <= min(W, 65_535)
+            if p.body == "mma":
+                terms = 2 if dtype == torch.float32 else 1
+                wg = p.bins // 64
+                assert p.bins in (64, 128) and p.rows == 4 // wg and 3 <= p.stages <= 8
+                assert (rb // 128) % p.rows == 0 and wg * p.rows * 8192 == 32_768  # 32 KB stages
+                assert p.smem == A._mma_smem(p.qb, rb, terms, wg, p.rows, p.stages)
+                assert A._mma_smem(p.qb, rb, terms, wg, p.rows, p.stages + 1) > 232_448 or p.stages == 8
+                # the next power of two from Q, 16 up to the largest block that fits
+                assert p.qb == min(_MMA_QB_MAX[dtype, D], max(16, 1 << (Q - 1).bit_length()))
+                assert terms == 1 or p.qb < 32 or p.bins == 64  # fp32 at 32: one warpgroup
+            else:
+                assert p.qb == 1 << (min(Q, 8) - 1).bit_length()
+                assert p.bins in (16, 32, 64, 128) and p.rows % 16 == 0 and p.bins % p.rows == 0
+                assert p.stages >= 2 and p.smem == A._core_smem(p.qb, rb, p.bins, p.rows, p.stages)
+                assert p.rows * rb <= 65_536 and (p.rows == 16 or p.rows * rb <= 32_768)
+            assert p.grid == (L // p.bins, p.splits, -(-Q // p.qb))
+        chunk = A.select_plan(L, k)
+        assert chunk is not None  # every phase shape takes the fused selection
+        if L <= A.SEL_CAP:
+            assert chunk == L
+        else:
+            assert chunk < L and -(-L // chunk) * k <= A.SEL_CAP
+
+
+def test_select_plan_threshold_and_refusals():
+    """One launch up to 8,192 bins, two from 8,320 (the next multiple of
+    128); none past ``K_MAX`` or L, or where the candidates overflow."""
+    assert A.select_plan(8192, 256) == 8192
+    assert A.select_plan(8320, 256) == 4096 and A.select_plan(8320, 10) == 4096
+    assert A.select_plan(32_896, 256) == 4096  # phase 13's k=256 r=0.99 arena row: 9 chunks
+    assert A.select_plan(140_000, 256) == 8192  # 18 chunks of 8,192
+    assert A.select_plan(300_000, 256) is None  # 37 chunks of 256: 9,472 candidates
+    assert A.select_plan(384, 257) is None and A.select_plan(128, 200) is None
+    assert A.select_plan(128, 0) is None
+
+
+def _split_partials(qc, index, L, splits):
+    """Each split's bin maxima over its windows (the kernel's split_range),
+    the lowest row on ties; (-inf, -1) where a split holds no row of a bin."""
+    Q, N = qc.shape[0], index.shape[0]
+    W = -(-N // L)
+    sims = torch.nn.functional.pad(qc.float() @ index.float().T, (0, W * L - N), value=-float("inf")).view(Q, W, L)
+    pv, pi = [], []
+    for s in range(splits):
+        w0, w1 = s * W // splits, (s + 1) * W // splits
+        v, w = torch.max(sims[:, w0:w1], dim=1)
+        ids = (w + w0) * L + torch.arange(L)
+        real = v > -float("inf")
+        pv.append(v)
+        pi.append(torch.where(real, ids, torch.full_like(ids, -1)).to(torch.int32))
+    return torch.stack(pv), torch.stack(pi)
+
+
+@pytest.mark.parametrize("N, L, splits, k", [
+    (N, L, splits, k)
+    for N, L, splits in ((1000, 128, 1), (1000, 256, 3), (20_000, 8192, 2), (20_000, 8320, 2), (19_990, 9_984, 1),
+                         (66_000, 32_896, 2))
+    for k in (1, 2, 10, 100, 256) if k <= L
+])
+def test_select_plain_is_the_binned_selection(N, L, splits, k):
+    """The fused selection's contract (``select_plain``: split maxima merged
+    in split order, the top k of each chunk, then of the candidates) against
+    ``_select_bins(*binmax_plain(...))``, bit for bit in scores and ids. The
+    index repeats rows inside a bin (later windows, other splits) and across
+    bins, and the queries are some of those rows, so every tie rule is hit;
+    L up to N / 2."""
+    rng = np.random.default_rng(N + L + k)
+    D = 16
+    x = _unit(rng, N, D)
+    x[L + 3] = x[3]  # bin 3: rows 3 and L + 3 tie (same split or the next)
+    x[(N // L - 1) * L + 3] = x[3]  # and a row in the last full window (the last split)
+    x[7] = x[5]  # bins 5 and 7 tie: row 5 first
+    x[2 * L + 9] = x[11]  # bins 9 and 11 tie at rows 2L + 9 and 11: row 11 first
+    x = np.round(x * 64) / 64  # coarse values: many equal scores across bins
+    index = torch.from_numpy(x.astype(np.float32))
+    q = torch.from_numpy(np.concatenate([x[[3, 5, 11]], rng.standard_normal((3, D))]).astype(np.float32))
+    qc = A._normalize_div(q)
+    part_v, part_i = _split_partials(qc, index, L, splits)
+    chunk = A.select_plan(L, k) if k > 1 else L
+    s, i = A.select_plain(part_v, part_i, k, chunk)
+    ws, wi = A._select_bins(*A.binmax_plain(qc, index, L), k)
+    assert torch.equal(s, ws) and torch.equal(i, wi)
+    assert s.dtype == torch.float32 and i.dtype == torch.int32 and s.shape == (6, k)
+    if k >= 2:
+        assert i[0, 0] == 3 and i[1, :2].tolist() == [5, 7] and i[2, :2].tolist() == [11, 2 * L + 9]
+
+
+def test_select_plain_merges_in_split_order():
+    """Equal maxima in two splits: the earlier split's (lower) row stays;
+    -0 and +0 tie and go to the lower id, as torch.sort has them."""
+    pv = torch.tensor([[[0.5, -0.0, 0.25]], [[0.5, 0.0, 0.75]]])
+    pi = torch.tensor([[[0, 1, 2]], [[3, 4, 5]]], dtype=torch.int32)
+    s, i = A.select_plain(pv, pi, 3, 3)
+    assert i.tolist() == [[5, 0, 1]] and s.tolist() == [[0.75, 0.5, -0.0]]
+    assert torch.signbit(s[0, 2])  # the kept -0's own bits
+
+
+def test_select_bins_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(4)
+    vals = torch.from_numpy(np.round(rng.standard_normal((3, 9000)) * 8).astype(np.float32) / 8)
+    ids = torch.from_numpy(rng.permutation(9000 * 3)[:27_000].reshape(3, 9000).astype(np.int32))
+    n0 = A.approx_topk.select_launches
+    s, i = A.select_bins(vals, ids, 100)
+    ws, wi = A._select_bins(vals, ids, 100)
+    assert torch.equal(s, ws) and torch.equal(i, wi) and A.approx_topk.select_launches == n0
+    for bad in (dict(k=257), dict(k=0), dict(ids=ids.long())):
+        args = dict(vals=vals, ids=ids, k=10) | bad
+        with pytest.raises(ValueError, match="select_bins"):
+            A.select_bins(**args)
+
+
+def test_binmax_refusals_before_any_launch():
+    """What the kernel does not take raises on the CPU as on the card, in
+    the wrapper (``binmax``) and in the plan, before any launch: rows not of
+    whole 16-byte vectors or past 4,096 bytes, L off the multiple of 128 or
+    outside [128, N], queries of another type, query blocks past 65,535."""
+    rng = np.random.default_rng(6)
+    index = torch.from_numpy(_unit(rng, 2048, 64))
+    q = torch.from_numpy(_unit(rng, 2, 64))
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        A.binmax(q[:, :62].contiguous(), index[:, :62].contiguous(), 128)  # 248-byte rows
+    with pytest.raises(ValueError, match="16-byte"):
+        A.binmax(q.bfloat16()[:, :60].contiguous(), index.bfloat16()[:, :60].contiguous(), 128)  # 120 bytes
+    wide = torch.zeros(256, 1028)
+    with pytest.raises(ValueError, match="at most 4096"):
+        A.binmax(wide[:1], wide, 128)  # 4,112-byte rows
+    for L in (100, 64, 4096):  # off the multiple, under 128, past N
+        with pytest.raises(ValueError, match="multiple of 128"):
+            A.binmax(q, index, L)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        A.binmax(q, index[:2000], 2048)
+    with pytest.raises(TypeError, match="its type"):
+        A.binmax(q.bfloat16(), index, 256)
+    with pytest.raises(ValueError, match="query blocks"):
+        A.binmax_plan(65_535 * 64 + 1, 1 << 20, 512, torch.bfloat16, 4096, 132)
+    assert A.binmax_plan(65_535 * 64, 1 << 20, 512, torch.bfloat16, 4096, 132).grid[2] == 65_535
+    assert sum(ops.launch_counts().values()) == 0
+    assert A.binmax(torch.zeros(1, 1024), torch.zeros(256, 1024), 128)[0].shape == (1, 128)  # 4,096 bytes

@@ -27,8 +27,10 @@ tiles on the CUDA-core body, N no multiple of a tile, a round or a group,
 pad rows scoring 0, group maxima equal to the maxima of the kernel's own tile
 maxima, the two-pass route against the plain route at Q = 64), the bin-max
 kernel of approximate top-k on both bodies (Q from 1 to 130 across the
-switch at 17, one split and many, N no multiple of L, rows repeated inside
-and across bins), and the wrappers' refusals. Each kernel test asserts that the wrapper's launch
+switch at 17, D = 512 and 768, one split and many, N no multiple of L, rows
+repeated inside and across bins), its fused selection bit-equal to the sort
+of the bins (k 2 to 256, L 128 to 32,896, one launch and two) and the
+searches' launch counts, and the wrappers' refusals. Each kernel test asserts that the wrapper's launch
 counter moved. The YOLO crop stage (no kernel of its own: cuDNN convs) is
 held against its CPU run: the committed detector in fp32 and bf16,
 ``nms_fixed``, the device crop, and the fused search through
@@ -1772,6 +1774,112 @@ def test_approx_topk_on_the_card(gen, Q, k, r, dtype):
     assert AT.approx_topk.launches == n0 + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [512, 768])
+@pytest.mark.parametrize("Q", [1, 2, 8, 16, 17, 32, 64, 65, 130])
+def test_binmax_bodies(gen, Q, D, dtype):
+    """Both bodies of the redesigned kernel (the TMA ring on the CUDA cores
+    at Q <= 16, wgmma above, fp32 through 3xTF32 on blocks of 32 or 16
+    queries) against ``binmax_plain``: N =
+    20,011 leaves a ragged last window (L = 256: 78 whole windows and 43
+    rows), and rows repeated in later windows of their bin (other splits) and
+    in other bins keep the lowest row, bit for bit in the ids."""
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+
+    N, L = 20_011, 256
+    index = _unit_index(gen, N, D, dtype)
+    index[L::L] = index[0]  # bin 0: every window holds row 0's copy
+    index[40 * L + 9] = index[9]
+    index[N - 1] = index[N - 1 - 2 * L]  # the ragged window repeats an earlier row of its bin
+    qc = R._normalize_div(_rand(gen, Q, D)).to(dtype)
+    qc[0] = index[0]
+    if Q > 1:
+        qc[1] = index[9]
+    qc = qc.contiguous()
+    p = AT.binmax_plan(Q, N, D, dtype, L, _build.sm_count(qc.device))
+    assert p.splits > 1
+    before, n0 = dict(AT.approx_topk.bodies), AT.approx_topk.launches
+    vals, ids = AT.binmax(qc, index, L)
+    torch.cuda.synchronize()
+    assert AT.approx_topk.launches == n0 + 1
+    assert {b: AT.approx_topk.bodies[b] - before[b] for b in before} == {b: int(b == p.body) for b in before}
+    assert p.body == ("mma" if Q >= 17 else "cuda_core")
+    rv, ri = AT.binmax_plain(qc, index, L)
+    torch.testing.assert_close(vals, rv, atol=2e-6, rtol=0)
+    assert ((ids.long() % L) == torch.arange(L, device="cuda")).all() and (ids >= 0).all() and (ids < N).all()
+    sims = qc.float() @ index.float().T
+    torch.testing.assert_close(sims.gather(1, ids.long()), rv, atol=2e-6, rtol=0)
+    W = -(-N // L)
+    pad = torch.nn.functional.pad(sims, (0, W * L - N), value=-float("inf")).view(Q, W, L)
+    top2 = pad.topk(2, dim=1).values
+    apart = (top2[:, 0] - top2[:, 1]) > 1e-5
+    assert torch.equal(ids[apart], ri[apart])
+    assert ids[0, 0] == 0 and ri[0, 0] == 0  # row 0 and its copies score alike: the lowest row
+    if Q > 1:
+        assert ids[1, 9] == ri[1, 9] == 9
+    # a second call: the same bits
+    v2, i2 = AT.binmax(qc, index, L)
+    assert torch.equal(v2, vals) and torch.equal(i2, ids)
+
+
+@pytest.mark.parametrize("k", [2, 10, 100, 256, 257])
+@pytest.mark.parametrize("L", [128, 384, 8192, 8320, 11_136, 32_896])
+def test_fused_selection_bit_equal(gen, L, k):
+    """The fused selection alone (``select_bins``: one launch up to 8,192
+    bins, two past it) over bins with many equal scores and -0 / +0 pairs,
+    bit-equal in scores and ids to ``_select_bins``; k = 257 is refused (the
+    sort route's k)."""
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+
+    Q = 3
+    vals = torch.round(_rand(gen, Q, L) * 16) / 16  # coarse: ties across bins
+    vals[:, 5] = -0.0
+    vals[:, 6] = 0.0
+    vals[1] = 0.25  # one query's bins all tie: the k lowest ids
+    ids = (torch.randperm(4 * L, device="cuda", generator=gen)[:L].sort().values.to(torch.int32)
+           .expand(Q, L).contiguous())
+    if k > min(256, L):
+        with pytest.raises(ValueError, match="select_bins"):
+            AT.select_bins(vals, ids, k)
+        return
+    n0 = AT.approx_topk.select_launches
+    s, i = AT.select_bins(vals, ids, k)
+    torch.cuda.synchronize()
+    assert AT.approx_topk.select_launches == n0 + (1 if L <= AT.SEL_CAP else 2)
+    ws, wi = AT._select_bins(vals, ids, k)
+    assert torch.equal(s, ws) and torch.equal(i, wi)
+    assert torch.equal(torch.signbit(s), torch.signbit(ws))
+    assert torch.equal(i[1], ids[1, :k])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,k,r", [(1, 10, 0.95), (64, 10, 0.95), (1, 100, 0.99), (64, 100, 0.99),
+                                   (16, 256, 0.9), (3, 257, 0.9)])
+def test_approx_search_fused_launches(gen, Q, k, r, dtype):
+    """A search on the card: the bin-max launch and the fused selection (one
+    launch, two past 8,192 bins), no sort, bit-equal to ``_select_bins`` over
+    the kernel's own bins; k = 257 (past K_MAX) sorts the kernel's bins and
+    counts it."""
+    from clip_lora_match_tpu_torch.ops import approx_topk as AT
+
+    index = _unit_index(gen, 44_446, 512, dtype)
+    queries = _rand(gen, Q, 512)
+    L, _ = AT.reduction_bins(44_446, k, r)
+    assert L < 44_446 and k <= L
+    n0, s0, sort0 = AT.approx_topk.launches, AT.approx_topk.select_launches, AT.approx_topk.sorts
+    s, i = AT.approx_topk(queries, index, k, r)
+    torch.cuda.synchronize()
+    assert AT.approx_topk.launches == n0 + 1
+    qc = R._normalize_div(queries).to(dtype)
+    ws, wi = AT._select_bins(*AT.binmax(qc, index, L), k)
+    if k <= 256:
+        assert AT.approx_topk.select_launches == s0 + (1 if L <= AT.SEL_CAP else 2)
+        assert AT.approx_topk.sorts == sort0
+    else:
+        assert AT.approx_topk.select_launches == s0 and AT.approx_topk.sorts == sort0 + 1
+    assert torch.equal(s, ws) and torch.equal(i, wi)
+
+
 def test_binmax_refusals(gen):
     from clip_lora_match_tpu_torch.ops import approx_topk as AT
 
@@ -1783,3 +1891,9 @@ def test_binmax_refusals(gen):
         AT.binmax(qc[:, :62].contiguous(), index[:, :62], 128)
     with pytest.raises(TypeError):
         AT.binmax(qc.bfloat16(), index, 128)
+    # an index whose base is not 16-byte aligned is refused before a launch
+    flat = _unit_index(gen, 2049, 64).view(-1)
+    n0 = AT.approx_topk.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        AT.binmax(qc, flat[1:1 + 2048 * 64].view(2048, 64), 128)
+    assert AT.approx_topk.launches == n0
