@@ -5,11 +5,14 @@ on its device between calls and the encoder is injected. ``quantize="int8"``
 serves from a per-row int8 copy of the index (``topk_retrieve_q8``), cached
 on the row count and extended by the appended rows only, and takes
 precedence over ``approximate``; ``approximate=True`` selects through
-``ops.approx_topk`` at ``recall_target``.
+``ops.approx_topk`` at ``recall_target``. A search records its wait for
+``index.lock`` (``search.lock_wait``) and its hold (``search.locked``: the
+top-k and its readback) in ``profiling.RECORDER``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from clip_lora_match_tpu_torch.core.profiling import annotate
 from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
 from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
 from clip_lora_match_tpu_torch.ops.retrieval_topk import quantize_index_int8, topk_retrieve_q8
@@ -72,6 +76,17 @@ class SearchIndex:
         self._q8 = (n, vq, sc)
         return vq, sc
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """``index.lock``, its wait and its hold recorded as spans."""
+        with annotate("search.lock_wait"):
+            self.index.lock.acquire()
+        try:
+            with annotate("search.locked"):
+                yield
+        finally:
+            self.index.lock.release()
+
     def _topk(self, queries: np.ndarray, k: int):
         """One (Q, D) or (D,) batch → (Q, k) scores and ids, a (D,) query as
         one row (the JAX package's ``np.atleast_2d``); the caller holds the
@@ -117,7 +132,7 @@ class SearchIndex:
         if len(self.index) == 0:
             return []
         # the lock keeps an append from swapping the arena mid-search
-        with self.index.lock:
+        with self._locked():
             scores, idx = self._topk(q[None], k)
         return self._results(scores[0], idx[0])
 
@@ -138,7 +153,7 @@ class SearchIndex:
         queries = np.asarray(queries, np.float32)
         if len(self.index) == 0:
             return [[] for _ in range(queries.shape[0])]
-        with self.index.lock:
+        with self._locked():
             scores, idx = self._topk(queries, k)
         return [self._results(qs, qi) for qs, qi in zip(scores, idx)]
 

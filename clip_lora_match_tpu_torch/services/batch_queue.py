@@ -5,7 +5,9 @@ Concurrent single-item encode requests are coalesced into one padded batch
 per tower pass: callers block on a per-request future while one worker
 thread drains the queue within a ``linger_ms`` window and makes one bucketed
 encoder call on the encoder's device. A lone request waits at most
-``linger_ms`` longer.
+``linger_ms`` longer. The worker records each request's wait
+(``queue.wait``, from its submission to the start of its pass) and each
+pass (``queue.pass``, ``n`` its requests) in ``profiling.RECORDER``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from clip_lora_match_tpu_torch.core import profiling
 from clip_lora_match_tpu_torch.core.logging import get_logger
 from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
 
@@ -30,6 +33,7 @@ class _Request:
     kind: str  # "text" | "image"
     payload: object  # str | PIL image | path
     future: Future
+    t_submit_ns: int  # time.perf_counter_ns() at submission
 
 
 class EncoderBatchQueue:
@@ -73,7 +77,7 @@ class EncoderBatchQueue:
         with self._close_lock:
             if self._closed:
                 raise RuntimeError("queue closed")
-            req = _Request(kind, payload, Future())
+            req = _Request(kind, payload, Future(), time.perf_counter_ns())
             self._q.put(req)
         return req.future
 
@@ -104,11 +108,15 @@ class EncoderBatchQueue:
                 by_kind.setdefault(r.kind, []).append(r)
             for kind, reqs in by_kind.items():
                 payloads = [r.payload for r in reqs]
+                t_pass = time.perf_counter_ns()
+                for r in reqs:
+                    profiling.RECORDER.record("queue.wait", r.t_submit_ns, t_pass)
                 try:
-                    if kind == "text":
-                        out = self.encoder.encode_text(payloads)
-                    else:
-                        out = self.encoder.encode_image(payloads)
+                    with profiling.annotate("queue.pass", n=len(reqs)):
+                        if kind == "text":
+                            out = self.encoder.encode_text(payloads)
+                        else:
+                            out = self.encoder.encode_image(payloads)
                 except Exception as e:  # the worker keeps serving; callers get the error
                     log.exception("batched %s encode failed", kind)
                     for r in reqs:

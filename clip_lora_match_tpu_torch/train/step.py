@@ -69,6 +69,7 @@ from clip_lora_match_tpu_torch.core.config import (
     LoraConfig,
     TrainingConfig,
 )
+from clip_lora_match_tpu_torch.core.profiling import annotate
 from clip_lora_match_tpu_torch.models import clip as clip_model
 from clip_lora_match_tpu_torch.models.io import tree_leaves, tree_map, unflatten
 from clip_lora_match_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, STAGE_AXIS, all_reduce_sum
@@ -407,7 +408,8 @@ def make_train_step(
     executors), ``params`` and the state's LoRA tree are then this rank's
     shards. ``step.loss_and_grads(lora, batch, specs)`` gives the global
     loss and gradients (this rank's shard of each) without an update. ``unroll`` is
-    accepted and has no effect."""
+    accepted and has no effect. A step records the spans ``train.step``,
+    ``train.backward`` and ``train.optimizer`` (``core/profiling.py``)."""
 
     def loss_and_grads(lora_tree, batch, specs=None, generator=None):
         batch = batch_to_device(batch, tree_device(lora_tree))
@@ -419,23 +421,28 @@ def make_train_step(
             generator if lora_cfg.dropout > 0 else None, mesh, transformer_fn,
         )
         loss = _loss(img, txt, train_cfg.temperature, mesh)
-        raw = list(torch.autograd.grad(loss, live))
-        loss = loss.detach()
-        if mesh is not None:
-            loss, raw = _reduce(mesh, loss, raw, _split_of(specs, [p for p, _ in pairs]))
+        with annotate("train.backward"):
+            raw = list(torch.autograd.grad(loss, live))
+            loss = loss.detach()
+            if mesh is not None:
+                loss, raw = _reduce(mesh, loss, raw, _split_of(specs, [p for p, _ in pairs]))
         return loss, unflatten({path: g for (path, _), g in zip(pairs, raw)})
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        gen = _clone_generator(state.generator)
-        split = mesh is not None and (mesh.size(MODEL_AXIS) > 1 or mesh.size(STAGE_AXIS) > 1)
-        if split and state.specs is None:
-            raise ValueError("the model and stage axes split the LoRA tree: build the state with "
-                             "init_tp_train_state / init_pp_train_state (parallel/)")
-        loss, grads = loss_and_grads(state.lora, batch, state.specs, gen)
-        norm = global_norm if state.specs is None else sharded_global_norm(mesh, state.specs)
-        updates, opt_state = tx.update(grads, state.opt_state, state.lora, norm=norm)
-        new = TrainState(apply_updates(state.lora, updates), opt_state, state.step + 1, gen, state.specs)
-        return new, {"loss": loss, "grad_norm": norm(grads)}
+        with annotate("train.step"):
+            gen = _clone_generator(state.generator)
+            split = mesh is not None and (mesh.size(MODEL_AXIS) > 1 or mesh.size(STAGE_AXIS) > 1)
+            if split and state.specs is None:
+                raise ValueError("the model and stage axes split the LoRA tree: build the state with "
+                                 "init_tp_train_state / init_pp_train_state (parallel/)")
+            loss, grads = loss_and_grads(state.lora, batch, state.specs, gen)
+            norm = global_norm if state.specs is None else sharded_global_norm(mesh, state.specs)
+            with annotate("train.optimizer"):
+                updates, opt_state = tx.update(grads, state.opt_state, state.lora, norm=norm)
+                new = TrainState(apply_updates(state.lora, updates), opt_state, state.step + 1, gen,
+                                 state.specs)
+                grad_norm = norm(grads)
+            return new, {"loss": loss, "grad_norm": grad_norm}
 
     step.loss_and_grads = loss_and_grads
     return step

@@ -30,7 +30,6 @@ from clip_lora_match_tpu.core.config import ClipArchConfig as JArch
 from clip_lora_match_tpu.core.config import LoraConfig as JLoraConfig
 from clip_lora_match_tpu.core.config import load_clip_config as j_load_clip_config
 from clip_lora_match_tpu.core.config import to_dict as j_to_dict
-from clip_lora_match_tpu.core.profiling import StepTimer as JStepTimer
 from clip_lora_match_tpu.index.build import build_text_index as j_build_text_index
 from clip_lora_match_tpu.index.build import verify_index as j_verify_index
 from clip_lora_match_tpu.index.store import EmbeddingIndex as JIndex
@@ -509,16 +508,3 @@ def test_trace_and_annotate_write_a_chrome_trace_on_the_cpu(tmp_path):
     with P.annotate("outside a trace"):
         pass
 
-
-def test_step_timer_summary_keys_match_jax():
-    ours, theirs = P.StepTimer(window=3), JStepTimer(window=3)
-    assert ours.summary() == theirs.summary() == {"count": 0}
-    for _ in range(5):
-        with ours:
-            pass
-        with theirs:
-            pass
-    assert ours.count == theirs.count == 3
-    assert set(ours.summary()) == set(theirs.summary())
-    s = ours.summary()
-    assert s["count"] == 3 and 0 <= s["p50_ms"] <= s["p95_ms"] <= s["max_ms"]
