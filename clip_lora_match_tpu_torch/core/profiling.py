@@ -16,7 +16,7 @@
   | ``queue.wait`` | ``services/batch_queue.py`` | one request, from its submission to the start of the tower pass that serves it |
   | ``queue.pass`` | the same | one tower pass over a drained batch, ``n`` its requests |
   | ``search.lock_wait`` | ``retrieval/search.py`` | acquiring ``index.lock`` |
-  | ``search.locked`` | the same | ``index.lock`` held: the top-k and its readback |
+  | ``search.locked`` | the same | one pass with ``index.lock`` held: the top-k and its readback, ``n`` its queries (none for ``search_batch``) |
   | ``train.step`` | ``train/step.py`` | one optimizer step |
   | ``train.backward`` | the same | ``torch.autograd.grad`` and the reduction over ranks |
   | ``train.optimizer`` | the same | the optimizer's update, its application and the ``grad_norm`` metric |

@@ -5,15 +5,24 @@ on its device between calls and the encoder is injected. ``quantize="int8"``
 serves from a per-row int8 copy of the index (``topk_retrieve_q8``), cached
 on the row count and extended by the appended rows only, and takes
 precedence over ``approximate``; ``approximate=True`` selects through
-``ops.approx_topk`` at ``recall_target``. A search records its wait for
-``index.lock`` (``search.lock_wait``) and its hold (``search.locked``: the
-top-k and its readback) in ``profiling.RECORDER``.
+``ops.approx_topk`` at ``recall_target``.
+
+Concurrent ``search_with_embedding`` callers share passes: each queues its
+query and waits for ``index.lock``; the thread that takes the lock serves
+every query queued by then, one ``_topk`` pass per distinct ``k`` of at most
+``PASS_QUERIES`` queries, and a caller whose query a pass has already served
+takes the lock only to release it. A lone caller runs the one-query pass it
+ran alone. Every caller records its wait for ``index.lock``
+(``search.lock_wait``) in ``profiling.RECORDER``; the thread that runs a
+pass records it (``search.locked``: the top-k and its readback, ``n`` its
+queries). ``search_batch`` holds the lock for its own pass.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,6 +36,10 @@ from clip_lora_match_tpu_torch.models.encoder import ClipEncoder
 from clip_lora_match_tpu_torch.ops.retrieval_topk import quantize_index_int8, topk_retrieve_q8
 from clip_lora_match_tpu_torch.retrieval.similarity import top_k_similar
 
+# the most queries one shared pass takes: pass 1's largest query block (the
+# mma body's 64, ``retrieval_topk.tilemax_plan``), so a pass reads the index once
+PASS_QUERIES = 64
+
 
 @dataclass
 class SearchResult:
@@ -34,6 +47,19 @@ class SearchResult:
     score: float
     image_path: Optional[str]
     text: Optional[str]
+
+
+@dataclass(eq=False)
+class _Pending:
+    """One ``search_with_embedding`` query waiting for a pass, and what the
+    pass gave it: (k,) scores and ids, or the exception it raised."""
+
+    query: np.ndarray
+    k: int
+    scores: Optional[np.ndarray] = None
+    ids: Optional[np.ndarray] = None
+    error: Optional[Exception] = None
+    done: bool = False
 
 
 class SearchIndex:
@@ -59,6 +85,8 @@ class SearchIndex:
         self.recall_target = recall_target
         self.quantize = quantize
         self._q8: Optional[tuple] = None  # (rows, values, scales)
+        self._pending: list[_Pending] = []
+        self._pending_lock = threading.Lock()
 
     def _q8_state(self):
         """(values, scales) for the current rows; the caller holds the lock."""
@@ -78,14 +106,39 @@ class SearchIndex:
 
     @contextlib.contextmanager
     def _locked(self):
-        """``index.lock``, its wait and its hold recorded as spans."""
+        """``index.lock``, the wait for it recorded as a span."""
         with annotate("search.lock_wait"):
             self.index.lock.acquire()
         try:
-            with annotate("search.locked"):
-                yield
+            yield
         finally:
             self.index.lock.release()
+
+    def _serve_pending(self) -> None:
+        """Run every queued query: one pass per distinct ``k`` and per
+        ``PASS_QUERIES`` queries, each recorded as one ``search.locked`` span
+        carrying its query count. A pass's exception goes to each of its
+        queries. The caller holds the index lock."""
+        with self._pending_lock:
+            batch, self._pending = self._pending, []
+        by_k: dict[int, list[_Pending]] = {}
+        for slot in batch:
+            by_k.setdefault(slot.k, []).append(slot)
+        for k, slots in by_k.items():
+            for at in range(0, len(slots), PASS_QUERIES):
+                group = slots[at:at + PASS_QUERIES]
+                queries = np.stack([slot.query for slot in group])
+                try:
+                    with annotate("search.locked", n=len(group)):
+                        scores, ids = self._topk(queries, k)
+                except Exception as e:  # each caller of the pass raises it
+                    for slot in group:
+                        slot.error = e
+                else:
+                    for slot, s, i in zip(group, scores, ids):
+                        slot.scores, slot.ids = s, i
+                for slot in group:
+                    slot.done = True
 
     def _topk(self, queries: np.ndarray, k: int):
         """One (Q, D) or (D,) batch → (Q, k) scores and ids, a (D,) query as
@@ -121,7 +174,8 @@ class SearchIndex:
         return out
 
     def search_with_embedding(self, query: np.ndarray, k: int = 5) -> list[SearchResult]:
-        """(D,) or (1, D) query → top-k results."""
+        """(D,) or (1, D) query → top-k results, from a pass shared with the
+        callers queued beside it (the module's docstring)."""
         q = np.asarray(query, np.float32)
         if q.ndim == 2 and q.shape[0] == 1:
             q = q[0]
@@ -131,10 +185,21 @@ class SearchIndex:
             raise ValueError(f"query dim {q.shape[0]} != index dim {self.index.dim}")
         if len(self.index) == 0:
             return []
-        # the lock keeps an append from swapping the arena mid-search
+        slot = _Pending(q, k)
+        with self._pending_lock:
+            self._pending.append(slot)
+        # the lock keeps an append from swapping the arena mid-pass. A slot is
+        # queued before its caller waits for the lock, and a lock holder serves
+        # every slot it takes, so once its caller holds the lock a slot is
+        # served or still queued
         with self._locked():
-            scores, idx = self._topk(q[None], k)
-        return self._results(scores[0], idx[0])
+            if not slot.done:
+                self._serve_pending()
+        if slot.error is not None:
+            raise slot.error
+        if not slot.done:  # the pass that took it was interrupted
+            raise RuntimeError("search_with_embedding: the pass that took this query did not finish")
+        return self._results(slot.scores, slot.ids)
 
     def _require_encoder(self) -> ClipEncoder:
         if self.encoder is None:
@@ -153,7 +218,7 @@ class SearchIndex:
         queries = np.asarray(queries, np.float32)
         if len(self.index) == 0:
             return [[] for _ in range(queries.shape[0])]
-        with self._locked():
+        with self._locked(), annotate("search.locked"):
             scores, idx = self._topk(queries, k)
         return [self._results(qs, qi) for qs, qi in zip(scores, idx)]
 

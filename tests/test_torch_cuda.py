@@ -463,6 +463,53 @@ def test_search_index_past_k_max_takes_the_mid_band_route(gen):
     _assert_topk_matches_plain(got_s, got_i, rs, ri)
 
 
+@pytest.mark.parametrize("callers,body", [(8, "cuda_core"), (16, "mma")])
+def test_search_index_queued_callers_share_one_two_pass_search(gen, callers, body):
+    """Callers queued on ``index.lock`` over 70,001 fp32 rows on the card:
+    one two-pass search for all of them, pass 1 on the body its query count
+    picks, each result equal to the caller's lone call, ids tie-aware."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from clip_lora_match_tpu_torch.core.profiling import RECORDER
+    from clip_lora_match_tpu_torch.index.store import EmbeddingIndex
+    from clip_lora_match_tpu_torch.retrieval.search import SearchIndex
+
+    rows = torch.nn.functional.normalize(_rand(gen, 70_001, 512), dim=1).cpu().numpy()
+    search = SearchIndex(EmbeddingIndex(rows, device="cuda"))
+    queries = rows[:callers] + 0.1 * np.random.default_rng(0).standard_normal((callers, 512)).astype(np.float32)
+
+    def bodies():
+        return {b: R.tilemax.bodies[b] + R.tilemax_sup.bodies[b] for b in R.tilemax.bodies}
+
+    lone = [search.search_with_embedding(q, 10) for q in queries]
+    out = [None] * callers
+    threads = [threading.Thread(target=lambda j=j: out.__setitem__(j, search.search_with_embedding(queries[j], 10)))
+               for j in range(callers)]
+    before = bodies()
+    t0 = time.perf_counter()
+    with search.index.lock:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 30
+        while len(search._pending) < callers and time.monotonic() < deadline:
+            time.sleep(0.001)
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert [p.n for p in RECORDER.spans("search.locked", t0, time.perf_counter())] == [callers]
+    assert {b: bodies()[b] - before[b] for b in before} == {b: int(b == body) for b in before}
+
+    def stacked(results):
+        return (torch.tensor([[r.score for r in res] for res in results]),
+                torch.tensor([[r.index for r in res] for res in results]))
+
+    assert all(res[0].index == j for j, res in enumerate(out))
+    _tie_aware(stacked(out), stacked(lone), 1e-6)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _rand(gen, 1, 8, 2, 32)
     with pytest.raises(ValueError):
